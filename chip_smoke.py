@@ -20,9 +20,24 @@ catches its own failure):
     counting pass, then ``render_set`` over 10 orbit cameras at 1297×840
     with the kernel launch counters reset just before and read just
     after; outputs must be finite, cover the image, never overflow, and
-    one view must match the all-plain path on the card.
+    one view must match the all-plain path on the card;
+(d) the phase-1 training path on the same scene: targets rendered by a
+    second seeded "teacher" scaffold through the port's forward (a
+    central box as the object mask, mono depth ``0.1 + 0.8·depth/max`` as
+    ``gscream_tpu/data/synthetic.py`` makes it); one step's gradients at
+    view 0 with the arguments of every kernel call recorded, all six
+    kernels held against their plain versions and timed on those
+    arguments (K2 within tolerance and bit-equal to the path's own
+    output, K4 and K3 bit-equal), the step's gradients kernel path
+    against plain path, then ``N_STEPS`` ``train_step`` calls over
+    reference and other views with the launch counters reset just before
+    and summed over the steps alone (each step's capacity is sized by a
+    counting pass between them); losses must be finite, nothing may
+    overflow, and the densification statistics must fill.
 
-It prints a ``{"kernels": [...]}`` JSON line, then the card's
+It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
+the training path, with the render path's launch count and line
+beside it), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
@@ -43,6 +58,8 @@ import numpy as np
 WIDTH, HEIGHT = 1297, 840
 N_ANCHORS = 30_000
 N_VIEWS = 10
+N_TRAIN_VIEWS = 4       # training views 0..3; view 0 is the reference
+N_STEPS = 8
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth and non-tensor float32 throughput (132 SMs x 128 lanes x 2 per
 # FMA at 1.98 GHz)
@@ -63,6 +80,25 @@ K1_OPS_ALPHA = 3    # α >= 1/255: 1 − α, T·(1 − α), the T < 1e-4 test
 K1_OPS_BLEND = 11   # blended: w = α·T and the five weighted channel sums
 K1_RECORD_BYTES = 64    # one 16-float instance record
 K1_OUT_ROWS = 6         # output rows a caller reads (rgb, depth, unc, T)
+# K2: the K1 pair costs, and per applied (blended) pair 42 more float32
+# operations: w, γ (5 multiply-adds), the prefix, the suffix, ∂L/∂α (one
+# division counted once), X, the shifted coordinates, the five channel
+# products w·g, the five moment products and the 11 additions that fold
+# the pair into its instance's sums
+K2_OPS_APPLIED = 42
+K2_PIX_ROWS = 7         # pixel rows K2 reads (its 8th is zero)
+# K2 and the full step's gradients, kernel path against plain path: per
+# output lane (per gradient leaf), |kernel − plain| ≤ GRAD_ATOL·scale +
+# GRAD_RTOL·|plain| (scale = max |plain|), except at most GRAD_FLIP_SHARE
+# of the elements, which must lie within GRAD_FLIP_REL·scale.  The two
+# sum in other orders (warp butterflies against torch's reductions and
+# scans) and the kernel contracts multiply-adds; Total − prefix cancels
+# where Total is large, and a pixel's T < 1e-4 stop can move by one
+# instance, which moves that instance's gradients by O(α)
+GRAD_ATOL = 1e-3
+GRAD_RTOL = 1e-2
+GRAD_FLIP_SHARE = 5e-3
+GRAD_FLIP_REL = 5e-2
 # K1 / image tolerance: |kernel − plain| ≤ 1e-4·max(1, |plain|), except
 # at pixels where the T < 1e-4 stop moves by one instance (the kernel's
 # contracted multiply-adds round differently from PyTorch's separate
@@ -118,26 +154,27 @@ def wall_ms_per_call(fn, n):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def profile_render(render, args, n=3):
-    """torch.profiler over ``n`` renders: (kernels as (device ms per
-    render, launches per render, name), device ms per render of each
-    ``record_function`` layer of ``make_render_fn``, device busy ms and
-    wall ms per render under the profiler)."""
+def profile_calls(fn, prefixes, n=3):
+    """torch.profiler over ``n`` calls of ``fn``: (kernels as (device ms
+    per call, launches per call, name), device ms per call of each
+    ``record_function`` range whose name starts with one of
+    ``prefixes``, device busy ms and wall ms per call under the
+    profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    render(*args)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            render(*args)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     kernels, layers = [], {}
     for e in prof.key_averages():
-        if e.key.startswith("render/"):
+        if e.key.startswith(prefixes):
             # the CPU-side range: device time of the kernels it launched;
             # its GPU-side twin spans first to last kernel, gaps included
             if e.device_type == DeviceType.CPU:
@@ -148,6 +185,25 @@ def profile_render(render, args, n=3):
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     return kernels, layers, busy_ms, wall_ms
+
+
+def grad_close(got, ref, label):
+    """Hold ``got`` to ``ref`` with the GRAD_* tolerance; returns (max abs
+    error, share of elements beyond the tight bound)."""
+    import torch
+    got, ref = got.double(), ref.double()
+    require(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = (got - ref).abs()
+    bad = err > GRAD_ATOL * scale + GRAD_RTOL * ref.abs()
+    share = float(bad.double().mean()) if bad.numel() else 0.0
+    worst = float(err.max()) if err.numel() else 0.0
+    if share > GRAD_FLIP_SHARE or worst > GRAD_FLIP_REL * scale:
+        raise AssertionError(f"{label}: kernel path vs plain path max abs "
+                             f"{worst:.3e} (scale {scale:.3e}), "
+                             f"{share:.2e} of the elements beyond "
+                             "tolerance")
+    return worst, share
 
 
 def compare_images(got, ref):
@@ -178,17 +234,17 @@ def orbit_cameras(device, n=N_VIEWS):
     return cams
 
 
-def bench_scene(device):
+def bench_scene(device, seed=0):
     """The repo's benchmark model (``bench.py::_bench_scene``), drawn with
-    numpy seed 0 and a seeded torch.Generator."""
+    numpy seed ``seed`` and a torch.Generator seeded alike."""
     import torch
     from gscream_tpu_torch.model.scaffold import ScaffoldConfig, \
         init_scaffold
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     cfg = ScaffoldConfig(feat_dim=32, n_offsets=10, voxel_size=0.01,
                          capacity=1 << 15)
     pts = rng.normal(0, 0.6, (N_ANCHORS, 3)).astype(np.float32)
-    st = init_scaffold(pts, cfg, torch.Generator().manual_seed(0),
+    st = init_scaffold(pts, cfg, torch.Generator().manual_seed(seed),
                        device=device)
     p = st.params
 
@@ -223,6 +279,18 @@ def small_splats(device):
                    opacity=t(op))
     return s, t(rng.uniform(0, 1, (n, 3))), t(op), t(rng.uniform(0, 1, n)), \
         w, h
+
+
+def instance_demand(scaffold, cfg, cam):
+    """The capacity this view's emission needs (``overflow_demand``),
+    from one counting pass (``bench.py::_count_instances``)."""
+    from gscream_tpu_torch.ops.binning import (ROW_RATIO, _row_offsets,
+                                               emission_counts)
+    import torch
+    with torch.no_grad():
+        _, sp = splats_of(scaffold, cfg, cam)
+        ni, nr = emission_counts(sp, 32, 32, int(_row_offsets(sp)[-1]))
+    return max(int(ni), ROW_RATIO * int(nr))
 
 
 def splats_of(scaffold, cfg, cam):
@@ -331,9 +399,10 @@ def sync():
     torch.cuda.synchronize()
 
 
-def check_kernels(inp, label, timed, results):
-    """Hold each kernel against its plain version on ``inp``; when
-    ``timed``, time both and record the kernel's line in ``results``."""
+def check_kernels(inp, label, timed):
+    """Hold K5, K6 and K1 against their plain versions on ``inp``; when
+    ``timed``, time both and return each kernel's line, its launch count
+    left to the caller."""
     import torch
     from gscream_tpu_torch.ops import emission as em
     from gscream_tpu_torch.ops import rasterize_tiled as rt
@@ -362,9 +431,9 @@ def check_kernels(inp, label, timed, results):
                              "tolerance")
     log(f"{label}: K5 bit-equal {tuple(k5_k.shape)}, K6 bit-equal "
         f"{tuple(k6_k.shape)}, K1 max abs err {err:.3e}, beyond tolerance "
-        f"{bad:.2e} ({int(inp['binning'].num_instances)} instances)")
+        f"{bad:.2e}")
     if not timed:
-        return
+        return {}
     rows, _, capacity, _ = inp["k6"]
     inst, ts, tc, n_tiles = inp["k1"]
     k5_moved = k5_bytes(inp["k5"], rows.shape[1])
@@ -385,46 +454,362 @@ def check_kernels(inp, label, timed, results):
          max(k1_ops_s, k1_bytes_s),
          "operations" if k1_ops_s > k1_bytes_s else "bytes"),
     ]
+    results = {}
     for name, tag, kern, plain, args, src, repl, e, bound_s, by in specs:
         ms = cuda_ms(lambda: kern(*args), reps=20, warmup=2)
         plain_ms = cuda_ms(lambda: plain(*args), reps=1, rounds=3)
         results[name] = {
             "name": f"{tag} {name}", "route": "cuda",
             "source": f"gscream_tpu_torch/csrc/{src}", "replaces": repl,
-            "launches": 0, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": None,
-            "check": "bit-equal" if tag != "K1" else
+            "shapes": label, "max_abs_err": e, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": by,
+            "library_ms": None, "check": "bit-equal" if tag != "K1" else
             f"max abs err {e:.3e}, beyond tolerance {bad:.2e}"}
-        log(f"{tag} {name} at the full-width shapes: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms "
-            f"({by}) [{SMI}]")
+        log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({by}) "
+            f"[{SMI}]")
     log(f"K1 pairs {work}, float32 operations {k1_flops} "
         f"({k1_flops / F32_OPS_PER_S * 1e3:.4f} ms), exponentials "
         f"{work['exp'] / EX2_PER_S * 1e3:.4f} ms on the special-function "
         f"pipe, bytes {k1_moved} ({k1_bytes_s * 1e3:.4f} ms); K5 bytes "
         f"{k5_moved}, K6 bytes {k6_moved}")
+    return results
 
 
-class plain_kernels:
-    """Route the render path through the plain versions on the card (a
-    harness substitution for the comparison run; the package itself only
-    takes the plain versions for CPU tensors)."""
+def kernel_slots():
+    """(module, name, plain version) of each kernel wrapper where the
+    render and training paths look it up."""
+    from gscream_tpu_torch.ops import binning as bn
+    from gscream_tpu_torch.ops import emission as em
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.ops import shuffle as sh
+    return [(bn, "expand_gauss_rows", em.expand_gauss_rows_plain),
+            (bn, "expand_rows", em.expand_rows_plain),
+            (rt, "run_forward", rt.run_forward_plain),
+            (rt, "run_backward", rt.run_backward_plain),
+            (rt, "unpack_columns", sh.unpack_columns_plain),
+            (rt, "segment_reduce_cm", rt.segment_reduce_cm_plain)]
+
+
+class swap_kernels:
+    """For the span of a ``with``, the paths call ``wrap(name, wrapper,
+    plain)`` in place of each kernel wrapper (a harness substitution; the
+    package itself only takes the plain versions for CPU tensors)."""
+
+    def __init__(self, wrap):
+        self.wrap = wrap
 
     def __enter__(self):
-        from gscream_tpu_torch.ops import binning as bn
-        from gscream_tpu_torch.ops import emission as em
-        from gscream_tpu_torch.ops import rasterize_tiled as rt
-        self.saved = (bn.expand_gauss_rows, bn.expand_rows, rt.run_forward)
-        bn.expand_gauss_rows = em.expand_gauss_rows_plain
-        bn.expand_rows = em.expand_rows_plain
-        rt.run_forward = rt.run_forward_plain
+        self.saved = []
+        for mod, name, plain in kernel_slots():
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self.wrap(name, fn, plain))
         return self
 
     def __exit__(self, *exc):
-        from gscream_tpu_torch.ops import binning as bn
-        from gscream_tpu_torch.ops import rasterize_tiled as rt
-        bn.expand_gauss_rows, bn.expand_rows, rt.run_forward = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
         return False
+
+
+def plain_kernels():
+    """Route the paths through the plain versions on the card."""
+    return swap_kernels(lambda name, fn, plain: plain)
+
+
+def recorded_kernel_args(fn):
+    """``fn()`` with the arguments of each wrapper's last call recorded:
+    (its result, {wrapper name: args})."""
+    args = {}
+
+    def wrap(name, kern, plain):
+        def record(*a):
+            args[name] = a
+            return kern(*a)
+        # a wrapper counts its launch on the module attribute by its own
+        # name, which is this recorder for the span of the ``with``
+        record.launches = 0
+        return record
+    with swap_kernels(wrap):
+        out = fn()
+    return out, args
+
+
+def launch_counters():
+    """{kernel name: its wrapper}, in the order of the kernels line."""
+    from gscream_tpu_torch.ops import emission as em
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.ops import shuffle as sh
+    return {"tile_forward": rt.run_forward,
+            "tile_backward": rt.run_backward,
+            "segment_reduce": rt.segment_reduce_cm,
+            "unpack_columns": sh.unpack_columns,
+            "expand_gauss_rows": em.expand_gauss_rows,
+            "expand_rows": em.expand_rows}
+
+
+# ---------------------------------------------------------------------------
+# phase (d): the phase-1 training path
+
+def training_targets(dev, cfg, cams):
+    """Per training view (gt image (3,H,W), object mask (1,H,W), mono
+    depth (1,H,W), fg box (H,W)): a second seeded "teacher" scaffold
+    (numpy seed 1) rendered by the port's forward; the mask is the
+    central third, the fg box the central half, the mono depth ``0.1 +
+    0.8·depth/max`` (``gscream_tpu/data/synthetic.py:89-98``)."""
+    import torch
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.render_sets import make_render_fn
+    _, teacher = bench_scene(dev, seed=1)
+    capacity = capacity_tier(max(instance_demand(teacher, cfg, c)
+                                 for c in cams))
+    render = make_render_fn(teacher, cfg, WIDTH, HEIGHT, capacity)
+    mask = torch.zeros((1, HEIGHT, WIDTH), device=dev)
+    mask[:, HEIGHT // 3:2 * HEIGHT // 3, WIDTH // 3:2 * WIDTH // 3] = 1.0
+    fg = torch.zeros((HEIGHT, WIDTH), device=dev)
+    fg[HEIGHT // 4:3 * HEIGHT // 4, WIDTH // 4:3 * WIDTH // 4] = 1.0
+    targets = []
+    for cam in cams:
+        out, _, demand = render(teacher.params, teacher.mlps, cam)
+        require(int(demand) <= capacity, "teacher render overflowed")
+        d = out.depth
+        mono = 0.1 + 0.8 * d / torch.clamp_min(d.max(), 1e-6)
+        targets.append((out.color.permute(2, 0, 1).contiguous(), mask,
+                        mono[None].contiguous(), fg))
+    return targets
+
+
+def check_backward_kernels(args, label):
+    """K2 within tolerance and bit-equal to the path's own output on a
+    rerun, K4 and K3 bit-equal, each against its plain version on the
+    card, on the arguments ``args`` the training path gave them; returns
+    each kernel's line with its time and bound, its launch count left to
+    the caller."""
+    import torch
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.ops import shuffle as sh
+
+    def run(fn, *a):
+        out = fn(*a)
+        sync()          # a fault during the launch surfaces here
+        return out
+
+    k2 = args["run_backward"]
+    (rows,) = args["unpack_columns"]        # the path's own K2 output
+    ge, offsets = args["segment_reduce_cm"]
+    inst, pix, ts, tc, n_tiles = k2
+    cap = inst.shape[0]
+    n = min(int(offsets[-1]), cap)
+    rows_p = run(rt.run_backward_plain, *k2)
+    require(torch.equal(rows, run(rt.run_backward, *k2)),
+            f"K2 rerun is not bit-equal to the path's output ({label})")
+    require(not bool(rows[n:].any()), f"K2 left slots past {n} non-zero")
+    k2_err, k2_share = 0.0, 0.0
+    for lane in range(16):
+        e, sh_ = grad_close(rows[:n, lane], rows_p[:n, lane],
+                            f"K2 lane {lane} ({label})")
+        k2_err, k2_share = max(k2_err, e), max(k2_share, sh_)
+    cols = run(sh.unpack_columns, rows)
+    require(torch.equal(cols, sh.unpack_columns_plain(rows)),
+            f"K4 differs from its plain version ({label})")
+    seg = run(rt.segment_reduce_cm, ge, offsets)
+    require(torch.equal(seg, run(rt.segment_reduce_cm_plain, ge, offsets)),
+            f"K3 differs from its plain version ({label})")
+    require(bool(seg[:, 6].abs().max() > 0), "K3 summed no moment")
+    log(f"{label}: K2 max abs err {k2_err:.3e}, worst lane's share beyond "
+        f"tolerance {k2_share:.2e}, rerun bit-equal; K4 bit-equal "
+        f"{tuple(cols.shape)}; K3 bit-equal {tuple(seg.shape)}")
+
+    work = k1_work(inst, ts, tc)
+    flops = (K1_OPS_EVAL * work["eval"] + K1_OPS_EXP * work["exp"]
+             + K1_OPS_ALPHA * work["alpha"] + K2_OPS_APPLIED * work["blend"])
+    k2_ops_s = max(flops / F32_OPS_PER_S, work["exp"] / EX2_PER_S)
+    k2_moved = (work["records"] * K1_RECORD_BYTES + n_tiles * 2 * 4
+                + n_tiles * K2_PIX_ROWS * 1024 * 4 + cap * 64)
+    k4_moved = 2 * cap * 64
+    n_gauss = offsets.shape[0] - 1
+    k3_moved = n * 64 + nbytes(offsets) + n_gauss * 64
+    rows_t = ge.T.contiguous()
+    offs64 = offsets.long()
+    specs = [
+        ("tile_backward", "K2", lambda: rt.run_backward(*k2),
+         lambda: rt.run_backward_plain(*k2), None,
+         "rasterize_bwd.cu", "gscream_tpu/ops/rasterize_tiled.py:513",
+         k2_err, max(k2_ops_s, k2_moved / HBM_BYTES_PER_S),
+         "operations" if k2_ops_s > k2_moved / HBM_BYTES_PER_S else "bytes",
+         f"max abs err {k2_err:.3e}, worst lane beyond tolerance "
+         f"{k2_share:.2e}", 10),
+        ("segment_reduce", "K3", lambda: rt.segment_reduce_cm(ge, offsets),
+         lambda: rt.segment_reduce_cm_plain(ge, offsets),
+         lambda: torch.segment_reduce(rows_t, "sum", offsets=offs64),
+         "segreduce.cu", "gscream_tpu/ops/rasterize_tiled.py:899", 0.0,
+         k3_moved / HBM_BYTES_PER_S, "bytes", "bit-equal", 50),
+        ("unpack_columns", "K4", lambda: sh.unpack_columns(rows),
+         lambda: sh.unpack_columns_plain(rows), lambda: rows.t().contiguous(),
+         "shuffle.cu", "gscream_tpu/ops/shuffle.py:75", 0.0,
+         k4_moved / HBM_BYTES_PER_S, "bytes", "bit-equal", 50),
+    ]
+    results = {}
+    for (name, tag, kern, plain, lib, src, repl, e, bound_s, by, check,
+         reps) in specs:
+        ms = cuda_ms(kern, reps=reps, warmup=2)
+        plain_ms = cuda_ms(plain, reps=1, rounds=3)
+        lib_ms = cuda_ms(lib, reps=reps, warmup=2) if lib else None
+        results[name] = {
+            "name": f"{tag} {name}", "route": "cuda",
+            "source": f"gscream_tpu_torch/csrc/{src}", "replaces": repl,
+            "shapes": label, "max_abs_err": e, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": by,
+            "library_ms": lib_ms, "check": check}
+        log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f", bound {bound_s * 1e3:.4f} ms ({by}) [{SMI}]")
+    log(f"K2 pairs {work}, float32 operations {flops} "
+        f"({flops / F32_OPS_PER_S * 1e3:.4f} ms), exponentials "
+        f"{work['exp'] / EX2_PER_S * 1e3:.4f} ms, bytes {k2_moved} "
+        f"({k2_moved / HBM_BYTES_PER_S * 1e3:.4f} ms); K3 bytes {k3_moved}; "
+        f"K4 bytes {k4_moved}")
+    return results
+
+
+def train_phase(dev, cfg, scaffold, cams):
+    """Phase (d): targets; the six kernels against their plain versions
+    on the arguments one training step at view 0 gave them, and that
+    step's gradients kernel path against plain path; then N_STEPS
+    training steps with the launch counters around them.  Returns each
+    kernel's line, timed at view 0's shapes, with the training path's
+    launch counts."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.state import init_train_state
+    from gscream_tpu_torch.train.step import (loss_and_grads, phase1_masks,
+                                              train_step)
+    t_start = time.perf_counter()
+    opt = OptimConfig()
+    cams = cams[:N_TRAIN_VIEWS]
+    targets = training_targets(dev, cfg, cams)
+    ts = init_train_state(scaffold, cfg)
+    cap0 = capacity_tier(instance_demand(scaffold, cfg, cams[0]))
+
+    kw = dict(cfg=cfg, opt=opt, is_ref=True, capacity=cap0,
+              masks=phase1_masks(False))
+    g_k, args = recorded_kernel_args(
+        lambda: loss_and_grads(scaffold, cams[0], *targets[0], **kw))
+    label = (f"training view 0, capacity {cap0}, "
+             f"{int(args['segment_reduce_cm'][1][-1])} instances")
+    with torch.no_grad():
+        results = check_kernels({"k5": args["expand_gauss_rows"],
+                                 "k6": args["expand_rows"],
+                                 "k1": args["run_forward"]}, label, True)
+    results.update(check_backward_kernels(args, label))
+    del args
+
+    # the full step's gradients, kernel path against plain path
+    with plain_kernels():
+        g_p = loss_and_grads(scaffold, cams[0], *targets[0], **kw)
+    loss_k, loss_p = float(g_k.loss.detach()), float(g_p.loss.detach())
+    require(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+            f"step loss kernel path {loss_k} vs plain path {loss_p}")
+    worst = {}
+    for name, g in list(g_k.grads.items()) + [("screen", g_k.screen)]:
+        ref = g_p.screen if name == "screen" else g_p.grads[name]
+        if not bool(ref.any()):
+            require(not bool(g.any()), f"{name}: kernel path gradient where "
+                    "the plain path has none")
+            continue
+        worst[name] = grad_close(g, ref, f"step gradient {name}")
+    log("step gradients, kernel path vs plain path (max abs err, share "
+        "beyond tolerance): " + ", ".join(
+            f"{k} {e:.2e}/{s_:.1e}" for k, (e, s_) in worst.items()))
+    del g_k, g_p
+
+    # N_STEPS steps through the entry point: each kernel's launches are
+    # summed over the steps alone, the counting passes between them left
+    # out
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    launches = dict.fromkeys(counters, 0)
+    step_ms, caps = [], []
+    for i in range(N_STEPS):
+        v = i % len(cams)
+        capacity = capacity_tier(instance_demand(ts.scaffold, cfg, cams[v]))
+        before = {name: fn.launches for name, fn in counters.items()}
+        sync()
+        t0 = time.perf_counter()
+        ts, aux = train_step(ts, cams[v], *targets[v], cfg=cfg, opt=opt,
+                             is_ref=(v == 0), capacity=capacity,
+                             width=WIDTH, height=HEIGHT, accumulate=True)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, fn in counters.items():
+            launches[name] += fn.launches - before[name]
+        loss, l1, demand, n_active, _ = aux.packed.tolist()
+        require(math.isfinite(loss) and math.isfinite(l1),
+                f"step {i}: loss {loss}, l1 {l1}")
+        require(demand <= capacity, f"step {i}: overflow, demand {demand} "
+                f"> capacity {capacity}")
+        caps.append(capacity)
+        log(f"step {i + 1} view {v}{' (ref)' if v == 0 else ''}: loss "
+            f"{loss:.6f} l1 {l1:.6f}, instances {int(demand)} of capacity "
+            f"{capacity}, active gaussians {int(n_active)}, "
+            f"{step_ms[-1]:.2f} ms")
+    log(f"training launches over {N_STEPS} train_step calls (the counting "
+        f"passes between them left out): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "training path")
+        results[name]["launches"] = results[name]["launches_train"] = n
+    st = ts.stats
+    require(ts.step == N_STEPS, f"step count {ts.step}")
+    require(bool(st.anchor_demon.sum() > 0) and bool(
+        st.offset_denom.sum() > 0) and bool(st.offset_grad_accum.sum() > 0)
+        and bool(st.opacity_accum.sum() > 0),
+        "the densification statistics did not fill")
+    for name, m in ts.m.items():
+        require(bool(torch.isfinite(m).all()), f"moment {name} not finite")
+    median_ms = float(np.median(step_ms))
+    log(f"train_step ms per step (each to a sync, counting pass outside): "
+        f"{[round(t, 3) for t in step_ms]}; median over the {N_STEPS} "
+        f"steps {median_ms:.3f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{SMI}]")
+
+    # one profiled window of steps on view 1
+    cap1 = capacity_tier(int(1.125 * instance_demand(ts.scaffold, cfg,
+                                                     cams[1])))
+    state = [ts]
+
+    def one_step():
+        state[0], _ = train_step(state[0], cams[1], *targets[1], cfg=cfg,
+                                 opt=opt, is_ref=False, capacity=cap1,
+                                 width=WIDTH, height=HEIGHT, accumulate=True)
+    kernels, layers, busy_ms, wall_ms = profile_calls(
+        one_step, ("step/", "raster_bwd/"))
+    log(f"profile of one step on view 1: device busy {busy_ms:.3f} ms in "
+        f"{sum(k[1] for k in kernels)} kernel launches; wall {wall_ms:.3f} "
+        f"ms under the profiler (idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); idle share against the "
+        f"median of the {N_STEPS} steps above "
+        f"{max(0.0, 1 - busy_ms / median_ms):.3f} [{SMI}]")
+    for name, dev_ms in sorted(layers.items()):
+        log(f"  range {name}: {dev_ms:.4f} ms device")
+    # the repo's own kernels (launched through ctypes, not as PyTorch
+    # ops): the profiler may leave them out of a range's device time
+    own = {name.split("::")[1].split("(")[0]: dev_ms
+           for dev_ms, _, name in kernels
+           if name.startswith("(anonymous namespace)::")}
+    log(f"  hand-written kernels (device ms per step): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
+        + f"; ranges sum to {sum(layers.values()):.4f} ms of the "
+        f"{busy_ms:.4f} ms busy")
+    for dev_ms, calls, name in kernels[:14]:
+        log(f"  {dev_ms:9.4f} ms  x{calls:<3d} {name[:90]}")
+    log(f"phase (d) took {time.perf_counter() - t_start:.1f} s")
+    return results
 
 
 SMI = ""
@@ -447,17 +832,15 @@ def build_kernels():
                 log(f"ptxas {name}: {ln.strip()}")
 
 
-def run(dev):
-    """Phases (b) and (c) on ``dev``; returns the kernels' lines."""
+def render_phase(dev):
+    """Phases (b) and (c) on ``dev``; returns K1's, K5's and K6's lines
+    timed at the render path's view 0 with the render path's launch
+    counts, the scene and the orbit cameras."""
     import torch
     from gscream_tpu_torch.config import ModelConfig, RunConfig, save_config
     from gscream_tpu_torch.model.io import (load_trained_scaffold,
                                             save_anchors_ply, save_mlps_npz)
-    from gscream_tpu_torch.ops import emission as em
-    from gscream_tpu_torch.ops import rasterize_tiled as rt
-    from gscream_tpu_torch.ops.binning import (ROW_RATIO, _row_offsets,
-                                               emission_counts,
-                                               row_table_size)
+    from gscream_tpu_torch.ops.binning import ROW_RATIO, row_table_size
     from gscream_tpu_torch.train.loop import capacity_tier
     from gscream_tpu_torch.train.render_sets import (make_render_fn,
                                                      render_set)
@@ -471,7 +854,7 @@ def run(dev):
             demand = max(int(inp["binning"].num_instances),
                          ROW_RATIO * int(inp["binning"].num_rows))
             check_kernels(inp, f"small scene, capacity {cap} (demand "
-                          f"{demand})", False, None)
+                          f"{demand})", False)
 
     cfg, scaffold = bench_scene(dev)
     log(f"scene: {int(scaffold.alive.sum())} anchors, "
@@ -479,24 +862,19 @@ def run(dev):
     cams = orbit_cameras(dev)
 
     # one counting pass sizes the capacity (bench.py::_count_instances)
-    demand = 0
-    with torch.no_grad():
-        for cam in cams:
-            _, sp = splats_of(scaffold, cfg, cam)
-            ni, nr = emission_counts(sp, 32, 32, int(_row_offsets(sp)[-1]))
-            demand = max(demand, int(ni), ROW_RATIO * int(nr))
+    demand = max(instance_demand(scaffold, cfg, cam) for cam in cams)
     capacity = capacity_tier(demand)
     log(f"counting pass: max instance demand {demand} over {N_VIEWS} views "
         f"-> capacity tier {capacity} (row table "
         f"{row_table_size(capacity)})")
 
-    results = {}
     with torch.no_grad():
         dec, sp = splats_of(scaffold, cfg, cams[0])
         inp = kernel_inputs(sp, dec.color, dec.opacity, dec.uncertainty,
                             capacity, WIDTH, HEIGHT)
-        check_kernels(inp, f"full-width scene view 0, capacity {capacity}",
-                      True, results)
+        results = check_kernels(
+            inp, f"render view 0, capacity {capacity}, "
+            f"{int(inp['binning'].num_instances)} instances", True)
     del inp
 
     # (c) the render path through its entry points --------------------------
@@ -518,14 +896,13 @@ def run(dev):
             require(torch.equal(a[loaded.alive], b[scaffold.alive]),
                     "model IO round trip changed the anchors")
 
-        em.expand_gauss_rows.launches = 0
-        em.expand_rows.launches = 0
-        rt.run_forward.launches = 0
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
         res = render_set(tmp, "test", cams, loaded, lcfg, capacity=capacity,
                          save_images=True)
-        launches = {"expand_gauss_rows": em.expand_gauss_rows.launches,
-                    "expand_rows": em.expand_rows.launches,
-                    "tile_forward": rt.run_forward.launches}
+        launches = {name: counters[name].launches for name in (
+            "tile_forward", "expand_gauss_rows", "expand_rows")}
         n_png = len(os.listdir(os.path.join(tmp, "test", "renders")))
     log(f"render_set launches over {N_VIEWS} views: {launches}")
     for name, n in launches.items():
@@ -552,7 +929,8 @@ def run(dev):
             out_p, _, _ = render(loaded.params, loaded.mlps, cams[0])
         args0 = (loaded.params, loaded.mlps, cams[0])
         plain_wall = wall_ms_per_call(lambda: render(*args0), 10)
-        kernels, layers, busy_ms, wall_ms = profile_render(render, args0)
+        kernels, layers, busy_ms, wall_ms = profile_calls(
+            lambda: render(*args0), ("render/",))
     log(f"profile of one render of view 0: device busy {busy_ms:.3f} ms in "
         f"{sum(k[1] for k in kernels)} kernel launches; wall {wall_ms:.3f} "
         f"ms under the profiler (idle share "
@@ -576,8 +954,25 @@ def run(dev):
             f"beyond tolerance {bad:.2e}")
     log(f"view 0 mean final T {cover:.4f}; phases (b)-(c) took "
         f"{time.perf_counter() - t_start:.1f} s")
-    return [results[k] for k in ("tile_forward", "expand_gauss_rows",
-                                 "expand_rows")]
+    return results, cfg, scaffold, cams
+
+
+def kernels_line(render, train):
+    """The ``{"kernels": [...]}`` record: each kernel's line from the
+    training path (this slice's main path, which runs all six), timed at
+    its view 0 and holding its launch count; beside it the render path's
+    own launch count and, for the kernels it runs, its own line."""
+    out = []
+    for name in launch_counters():
+        rec = dict(train[name])
+        r = render.get(name)
+        rec["launches_render"] = r["launches"] if r else 0
+        if r:
+            rec["render"] = {k: r[k] for k in (
+                "shapes", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+        out.append(rec)
+    return {"kernels": out}
 
 
 def main():
@@ -589,9 +984,11 @@ def main():
     import gscream_tpu_torch  # noqa: F401  (fails outside a checkout)
     SMI = smi_line()
     build_kernels()
-    kernels = run(torch.device("cuda"))
-    # (d) the kernels line, the card, the result
-    print(json.dumps({"kernels": kernels}))
+    dev = torch.device("cuda")
+    render, cfg, scaffold, cams = render_phase(dev)
+    train = train_phase(dev, cfg, scaffold, cams)
+    # the kernels line, the card, the result
+    print(json.dumps(kernels_line(render, train)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,9 @@ SOURCES = {
     "emission": ("emission.cu", ["-fmad=false", "-prec-div=true",
                                  "-prec-sqrt=true"]),
     "rasterize_fwd": ("rasterize_fwd.cu", []),
+    "rasterize_bwd": ("rasterize_bwd.cu", []),
+    "shuffle": ("shuffle.cu", []),
+    "segreduce": ("segreduce.cu", []),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

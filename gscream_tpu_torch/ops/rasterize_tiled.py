@@ -1,5 +1,5 @@
-"""Tiled rasterizer, forward only: K1 (counterpart of
-``gscream_tpu/ops/rasterize_tiled.py``).
+"""Tiled rasterizer, forward and analytic backward: K1, K2 and K3
+(counterpart of ``gscream_tpu/ops/rasterize_tiled.py``).
 
 Each instance becomes one 16-float record in the JAX package's legacy
 layout ``[op, r, g, b, depth, unc, k0..k5, sx, sy, 0, 0]``
@@ -10,19 +10,34 @@ handful of flops per (instance, pixel) pair.  K1 (:func:`run_forward`,
 ``csrc/rasterize_fwd.cu``) blends each 32×32 tile front to back; the image
 crop and the background composite stay in torch.
 
-Only the forward is ported.  The backward (K2–K4 and the autograd
-function) is the next slice, so :func:`rasterize_tiled` refuses to run
-where autograd would record it, rather than return a wrong gradient.
+The backward (:class:`_RasterizeTiled`, the ``_raster_fwd``/``_raster_bwd``
+pair of the JAX package, :1180-1250) runs
+
+1. K2 (:func:`run_backward`, ``csrc/rasterize_bwd.cu``): per instance, the
+   channel sums Σw·g and the moments of X = ∂L/∂α·G in the gaussian's
+   rounded-centre frame, in sorted (tile, depth) order;
+2. K4 (:func:`~.shuffle.unpack_columns`): those rows → (16, capacity)
+   columns, scattered to emission order by ``emit_slot`` (a permutation,
+   so the scatter equals the JAX package's stable sort, :1079-1083);
+3. K3 (:func:`segment_reduce_cm`, ``csrc/segreduce.cu``): the sums over
+   each gaussian's contiguous emission run;
+4. :func:`pergauss_chain`: moments → d_mean2d, d_conic, d_opacity, once
+   per gaussian.
+
+The binning gets no gradient.  No step uses atomics, so the gradient of a
+rerun is bit-equal.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from . import cuda_build as cb
 from .binning import Binning
 from .projection import ALPHA_MAX, ALPHA_MIN, T_STOP
+from .shuffle import unpack_columns
 
 TILE_W = 32           # pixels per tile, x
 TILE_H = 32           # pixels per tile, y
@@ -143,26 +158,239 @@ def tiles_to_image(tiles: torch.Tensor, width: int, height: int):
     return img[:, :height, :width]
 
 
+def image_to_tiles(img: torch.Tensor, width: int, height: int):
+    """(C, H, W) → (n_tiles, C, PIX), zero-padded to whole tiles."""
+    gx = -(-width // TILE_W)
+    gy = -(-height // TILE_H)
+    c = img.shape[0]
+    pad = img.new_zeros((c, gy * TILE_H, gx * TILE_W))
+    pad[:, :height, :width] = img
+    t = pad.reshape(c, gy, TILE_H, gx, TILE_W)
+    return t.permute(1, 3, 0, 2, 4).reshape(gy * gx, c, PIX)
+
+
+def run_backward_plain(inst, pix_tiles, tile_start, tile_count,
+                       n_tiles: int) -> torch.Tensor:
+    """Plain version of K2; see :func:`run_backward`.  Per tile, vectorized
+    over pixels like :func:`run_forward_plain`: the inclusive ``cumprod``
+    gives T, an inclusive ``cumsum`` of γ·w the prefix, and the moments are
+    sums over the tile's pixels in the rounded-centre frame."""
+    dev = inst.device
+    out = torch.zeros((inst.shape[0], ILANES), dtype=torch.float32,
+                      device=dev)
+    x, y = _pixel_coords(dev)
+    starts = tile_start.tolist()
+    counts = tile_count.tolist()
+    for t in range(n_tiles):
+        c = counts[t]
+        if c == 0:
+            continue
+        s = starts[t]
+        d = inst[s:s + c]
+        g = pix_tiles[t]                          # (8, PIX)
+        k0, k1, k2 = d[:, 6:7], d[:, 7:8], d[:, 8:9]
+        k3, k4, k5 = d[:, 9:10], d[:, 10:11], d[:, 11:12]
+        power = k0 + (k1 + k3 * x + k4 * y) * x + (k2 + k5 * y) * y
+        g_exp = torch.exp(power)
+        alpha = torch.clamp_max(d[:, 0:1] * g_exp, ALPHA_MAX)
+        zero = torch.zeros_like(alpha)
+        alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha,
+                            zero)
+        t_after = torch.cumprod(1.0 - alpha, dim=0)
+        t_before = torch.cat([torch.ones_like(t_after[:1]), t_after[:-1]])
+        applied = (alpha > 0.0) & (t_after >= T_STOP)
+        w = torch.where(applied, alpha * t_before, zero)
+        gamma = (d[:, 1:2] * g[0:1] + d[:, 2:3] * g[1:2] + d[:, 3:4] * g[2:3]
+                 + d[:, 4:5] * g[3:4] + d[:, 5:6] * g[4:5])
+        suffix = g[5:6] - torch.cumsum(gamma * w, dim=0) + g[6:7]
+        # where, not a product with 0: exp(power) of a pair the kernel
+        # skips (power > 0) may be inf
+        X = torch.where(applied, (gamma * t_before - suffix / (1.0 - alpha))
+                        * g_exp, zero)
+        xs = x + d[:, 12:13]
+        ys = y + d[:, 13:14]
+        out[s:s + c, 1:6] = w @ g[0:5].T
+        for lane, m in enumerate((X, X * xs, X * ys, X * xs * xs,
+                                  X * xs * ys, X * ys * ys), start=6):
+            out[s:s + c, lane] = m.sum(1)
+    return out
+
+
+def run_backward(inst, pix_tiles, tile_start, tile_count,
+                 n_tiles: int) -> torch.Tensor:
+    """K2: the K1 records and the (n_tiles, 8, 1024) per-pixel rows
+    ``[g_r, g_g, g_b, g_depth, g_unc, Total, gTT, 0]`` → (capacity, 16)
+    gradient rows in sorted order: lanes 1-5 Σ_p w·g, lanes 6-11 the
+    moments of X = ∂L/∂α·G against ``[1, x, y, x², xy, y²]`` in the
+    gaussian's rounded-centre frame, lanes 0 and 12-15 zero.  Slots no
+    tile blends (past a tile's early stop, past the last tile) are zero.
+    The tile ranges must be ascending and contiguous from slot 0, as
+    :func:`~.binning.bin_instances` lays them out."""
+    if inst.device.type == "cpu":
+        return run_backward_plain(inst, pix_tiles, tile_start, tile_count,
+                                  n_tiles)
+    cb.check(inst, "inst", torch.float32, (None, ILANES))
+    cb.check(pix_tiles, "pix_tiles", torch.float32, (n_tiles, 8, PIX))
+    cb.check(tile_start, "tile_start", torch.int32, (n_tiles,))
+    cb.check(tile_count, "tile_count", torch.int32, (n_tiles,))
+    out = torch.empty_like(inst)
+    fn = cb.function("rasterize_bwd", "gs_tile_backward", "ppppiipp")
+    rc = fn(cb.ptr(inst), cb.ptr(pix_tiles), cb.ptr(tile_start),
+            cb.ptr(tile_count), n_tiles, inst.shape[0], cb.ptr(out),
+            cb.stream_of(inst))
+    cb.raise_on_error(rc, "tile_backward")
+    run_backward.launches += 1
+    return out
+
+
+run_backward.launches = 0
+
+
+def pergauss_chain(pg, mean2d, conic, opacity):
+    """Per-gaussian moment sums → (d_mean2d, d_conic, d_op, d_col,
+    d_depth, d_unc) (rasterize_tiled.py:848-879): the moment form of
+    ∂power/∂(mean, conic) is translation-covariant, so the chain runs once
+    per gaussian on the centred moments."""
+    d_col = pg[:, 1:4]
+    d_depth = pg[:, 4]
+    d_unc = pg[:, 5]
+    m0, mxs, mys = pg[:, 6], pg[:, 7], pg[:, 8]
+    mxxs, mxys, myys = pg[:, 9], pg[:, 10], pg[:, 11]
+    mxc = mean2d[:, 0] - torch.round(mean2d[:, 0])
+    myc = mean2d[:, 1] - torch.round(mean2d[:, 1])
+    ca, cb_, cc = conic[:, 0], conic[:, 1], conic[:, 2]
+    op = opacity
+    d_op = m0
+    dmx = op * (-(ca * mxc + cb_ * myc) * m0 + ca * mxs + cb_ * mys)
+    dmy = op * (-(cc * myc + cb_ * mxc) * m0 + cc * mys + cb_ * mxs)
+    dca = op * (-0.5) * (mxc * mxc * m0 - 2.0 * mxc * mxs + mxxs)
+    dcc = op * (-0.5) * (myc * myc * m0 - 2.0 * myc * mys + myys)
+    dcb = op * (-(mxc * myc * m0 - mxc * mys - myc * mxs + mxys))
+    d_mean2d = torch.stack([dmx, dmy], dim=1)
+    d_conic = torch.stack([dca, dcb, dcc], dim=1)
+    return d_mean2d, d_conic, d_op, d_col, d_depth, d_unc
+
+
+def segment_reduce_cm_plain(cols: torch.Tensor,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3; see :func:`segment_reduce_cm`.  Step j adds
+    the j-th instance of every gaussian's run at once, so each sum is
+    taken in emission order, one rounding per addition, as the kernel
+    takes it: the two are bit-equal."""
+    cap = cols.shape[1]
+    offs = torch.clamp_max(offsets.long(), cap)
+    lo, hi = offs[:-1], offs[1:]
+    out = torch.zeros((lo.shape[0], cols.shape[0]), dtype=torch.float32,
+                      device=cols.device)
+    longest = int((hi - lo).max()) if lo.numel() else 0
+    for j in range(longest):
+        e = lo + j
+        valid = (e < hi)[:, None]
+        vals = cols[:, torch.clamp_max(e, cap - 1)].T
+        out = out + torch.where(valid, vals, torch.zeros_like(vals))
+    return out
+
+
+def segment_reduce_cm(cols: torch.Tensor,
+                      offsets: torch.Tensor) -> torch.Tensor:
+    """K3: (16, capacity) float32 columns in emission order and the (N+1,)
+    int32 emission offsets → (N, 16) sums of each gaussian's run
+    ``[offsets[g], offsets[g+1])``, the offsets clamped to the capacity
+    (rasterize_tiled.py:939-989)."""
+    if cols.device.type == "cpu":
+        return segment_reduce_cm_plain(cols, offsets)
+    cb.check(cols, "cols", torch.float32, (ILANES, None))
+    cb.check(offsets, "offsets", torch.int32, (None,))
+    n = offsets.shape[0] - 1
+    out = torch.empty((n, ILANES), dtype=torch.float32, device=cols.device)
+    fn = cb.function("segreduce", "gs_segment_reduce", "ppiipp")
+    rc = fn(cb.ptr(cols), cb.ptr(offsets), n, cols.shape[1], cb.ptr(out),
+            cb.stream_of(cols))
+    cb.raise_on_error(rc, "segment_reduce")
+    segment_reduce_cm.launches += 1
+    return out
+
+
+segment_reduce_cm.launches = 0
+
+
+def emission_columns(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
+    """K2's (capacity, 16) rows in sorted order → (16, capacity) columns in
+    emission order: K4, then the column scatter ``out[:, emit_slot] =
+    cols``.  ``emit_slot`` is a permutation of the slots, so the scatter
+    is bit-equal to the JAX package's stable sort on it (:1079-1083)."""
+    cols = unpack_columns(rows)
+    return torch.empty_like(cols).index_copy_(1, binning.emit_slot.long(),
+                                              cols)
+
+
+def pixel_rows(raw_c, d_img, u_img, t_img, bg, g_color, g_depth, g_unc,
+               g_tfin, width: int, height: int) -> torch.Tensor:
+    """K2's per-pixel input, (n_tiles, 8, 1024) rows ``[g_r, g_g, g_b,
+    g_depth, g_unc, Total, gTT, 0]`` (``_raster_bwd``, :1209-1220), from
+    the forward's un-composited colour ``raw_c`` (3,H,W), depth,
+    uncertainty and final T (H,W), the background and the cotangents
+    (``g_color`` as (3,H,W)).  ``Total = Σ_c raw_c·g_c + D·g_D + U·g_U``
+    is Σ_i γ_i·w_i over the pixel's blended instances; ``gTT`` carries
+    the final-T cotangent, direct and through the background."""
+    gc = g_color
+    gtt = (bg[0] * gc[0] + bg[1] * gc[1] + bg[2] * gc[2] + g_tfin) * t_img
+    total = (raw_c[0] * gc[0] + raw_c[1] * gc[1] + raw_c[2] * gc[2]
+             + d_img * g_depth + u_img * g_unc)
+    pix = torch.stack([gc[0], gc[1], gc[2], g_depth, g_unc, total, gtt,
+                       torch.zeros_like(g_depth)])
+    return image_to_tiles(pix, width, height)
+
+
+class _RasterizeTiled(torch.autograd.Function):
+    """``_raster_fwd`` / ``_raster_bwd`` (rasterize_tiled.py:1180-1250)."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, colors, depth, unc, bg,
+                binning: Binning, width: int, height: int):
+        gx = -(-width // TILE_W)
+        gy = -(-height // TILE_H)
+        inst = pack_instance_data(mean2d, conic, opacity, colors, depth,
+                                  unc, binning, gx)
+        tiles = run_forward(inst, binning.tile_start, binning.tile_count,
+                            gx * gy)
+        img = tiles_to_image(tiles, width, height)     # (8,H,W)
+        raw_c, d_img, u_img, t_img = img[1:4], img[4], img[5], img[6]
+        color = raw_c + t_img[None] * bg[:, None, None]
+        ctx.save_for_backward(inst, bg, raw_c, d_img, u_img, t_img, mean2d,
+                              conic, opacity)
+        ctx.binning = binning
+        ctx.size = (width, height)
+        return color.permute(1, 2, 0), d_img, u_img, t_img
+
+    @staticmethod
+    def backward(ctx, g_color, g_depth, g_unc, g_tfin):
+        (inst, bg, raw_c, d_img, u_img, t_img, mean2d, conic,
+         op) = ctx.saved_tensors
+        binning = ctx.binning
+        gc = g_color.permute(2, 0, 1)                  # (3,H,W)
+        with record_function("raster_bwd/K2 tile_backward"):
+            pix = pixel_rows(raw_c, d_img, u_img, t_img, bg, gc, g_depth,
+                             g_unc, g_tfin, *ctx.size)
+            rows = run_backward(inst, pix, binning.tile_start,
+                                binning.tile_count,
+                                binning.tile_start.shape[0])
+        with record_function("raster_bwd/K4 unpack + reorder"):
+            ge = emission_columns(rows, binning)
+        with record_function("raster_bwd/K3 segment_reduce + chain"):
+            grads = pergauss_chain(segment_reduce_cm(ge, binning.offsets),
+                                   mean2d, conic, op)
+            # out_color = C + T·bg  ⇒  d bg = Σ_p T_p · g_color_p
+            d_bg = (t_img[None] * gc).sum(dim=(1, 2))
+        return grads + (d_bg, None, None, None)
+
+
 def rasterize_tiled(mean2d, conic, opacity, colors, depth, unc,
                     binning: Binning, bg, width: int,
                     height: int) -> TiledOut:
-    """Forward tile rasterization with the background composite
-    (``_raster_fwd``, rasterize_tiled.py:1180-1199)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (mean2d, conic, opacity, colors, depth,
-                                      unc, bg)):
-        raise NotImplementedError(
-            "rasterize_tiled: the backward is not ported yet; call it "
-            "under torch.no_grad() or with inputs that do not require "
-            "grad")
-    gx = -(-width // TILE_W)
-    gy = -(-height // TILE_H)
-    inst = pack_instance_data(mean2d, conic, opacity, colors, depth, unc,
-                              binning, gx)
-    tiles = run_forward(inst, binning.tile_start, binning.tile_count,
-                        gx * gy)
-    img = tiles_to_image(tiles, width, height)     # (8,H,W)
-    t_img = img[6]
-    color = img[1:4] + t_img[None] * bg[:, None, None]
-    return TiledOut(color=color.permute(1, 2, 0), depth=img[4],
-                    uncertainty=img[5], final_t=t_img)
+    """Tile rasterization with the background composite, differentiable in
+    ``mean2d, conic, opacity, colors, depth, unc`` and ``bg`` (the binning
+    gets no gradient)."""
+    return TiledOut(*_RasterizeTiled.apply(mean2d, conic, opacity, colors,
+                                           depth, unc, bg, binning, width,
+                                           height))

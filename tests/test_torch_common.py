@@ -30,6 +30,29 @@ def torch_binning(b):
     return Binning(*(to_torch(getattr(b, f)) for f in Binning._fields))
 
 
+def assert_close_flip_aware(got, ref, name, atol=2e-4, rtol=2e-3,
+                            max_flips=2, flip_rel=2e-2):
+    """``tests/test_rasterize_tiled.py::_assert_close_flip_aware``: every
+    element within ``atol·scale + rtol·|ref|`` (scale = max |ref|) except
+    at most ``max_flips``, which must still lie within ``flip_rel·scale``.
+    An instance whose α or transmittance sits within a few ulps of a
+    threshold (1/255, power ≤ 0, T < 1e-4) can flip between two float32
+    evaluations and change every gradient its chain touches by O(α).
+    Returns the worst absolute error over the scale."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, (name, got.shape, ref.shape)
+    assert np.all(np.isfinite(got)), name
+    scale = max(float(np.abs(ref).max()), 1e-3)
+    err = np.abs(got - ref)
+    nbad = int((err > atol * scale + rtol * np.abs(ref)).sum())
+    assert nbad <= max_flips, (f"{name}: {nbad} elements outside the tight "
+                               f"tolerance (worst {err.max():.3e}, scale "
+                               f"{scale:.3e})")
+    assert err.max() < flip_rel * scale, (f"{name}: worst {err.max():.3e} "
+                                          f"beyond the flip envelope")
+    return float(err.max() / scale)
+
+
 def gaussian_scene(seed, n=400, thin=True):
     """World-space gaussians in front of a +z camera: (means, scales,
     quats, colors, opacity, unc) as float32 numpy.  ``thin`` spreads the
