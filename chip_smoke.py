@@ -33,11 +33,23 @@ catches its own failure):
     reference and other views with the launch counters reset just before
     and summed over the steps alone (each step's capacity is sized by a
     counting pass between them); losses must be finite, nothing may
-    overflow, and the densification statistics must fill.
+    overflow, and the densification statistics must fill;
+(e) the Pallas-emission training configuration (``GSCREAM_EMIT=pallas
+    GSCREAM_REORDER=gather``) on the same scene and targets: one step's
+    gradients at view 0 with the kernel arguments recorded, K9a, K9b, K8
+    and K7 held bit-equal to their plain versions and timed on them, the
+    route's binning held to the default route's (index fields bit-equal
+    over the live instances, K8's records against
+    ``pack_instance_data``'s), the step's gradients against the default
+    route's (XLA emission + cm; ``scatter`` and ``sort`` run the same
+    reorder as ``gather``), then ``N_PALLAS_STEPS`` ``train_step`` calls
+    over views 0-3 in which K1, K2, K7, K8, K9a and K9b launch once per
+    step and K3, K4, K5 and K6 never; the environment is restored after.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
-the training path, with the render path's launch count and line
-beside it), then the card's
+its path: K7-K9 from phase (e), the others from phase (d), with the
+render path's and each training route's launch counts and the render
+path's line beside it), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
@@ -45,6 +57,7 @@ non-zero without printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -60,6 +73,14 @@ N_ANCHORS = 30_000
 N_VIEWS = 10
 N_TRAIN_VIEWS = 4       # training views 0..3; view 0 is the reference
 N_STEPS = 8
+N_PALLAS_STEPS = 4      # phase (e): train_step calls under GSCREAM_EMIT=pallas
+# the kernels each training route launches once per step (by their names
+# in launch_counters); the other four must not launch on that route
+DEFAULT_ROUTE = ("tile_forward", "tile_backward", "segment_reduce",
+                 "unpack_columns", "expand_gauss_rows", "expand_rows")
+PALLAS_ROUTE = ("tile_forward", "tile_backward", "segment_reduce_rows",
+                "pack_columns", "expand1", "expand2")
+PALLAS_ENV = {"GSCREAM_EMIT": "pallas", "GSCREAM_REORDER": "gather"}
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth and non-tensor float32 throughput (132 SMs x 128 lanes x 2 per
 # FMA at 1.98 GHz)
@@ -204,6 +225,22 @@ def grad_close(got, ref, label):
                              f"{share:.2e} of the elements beyond "
                              "tolerance")
     return worst, share
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the span of a ``with`` and restore
+    them after (the selectors of the training path read them per call)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def compare_images(got, ref):
@@ -488,7 +525,11 @@ def kernel_slots():
             (rt, "run_forward", rt.run_forward_plain),
             (rt, "run_backward", rt.run_backward_plain),
             (rt, "unpack_columns", sh.unpack_columns_plain),
-            (rt, "segment_reduce_cm", rt.segment_reduce_cm_plain)]
+            (rt, "segment_reduce_cm", rt.segment_reduce_cm_plain),
+            (bn, "expand1", em.expand1_plain),
+            (bn, "expand2", em.expand2_plain),
+            (rt, "pack_columns", sh.pack_columns_plain),
+            (rt, "segment_reduce_rows", rt.segment_reduce_rows_plain)]
 
 
 class swap_kernels:
@@ -546,7 +587,11 @@ def launch_counters():
             "segment_reduce": rt.segment_reduce_cm,
             "unpack_columns": sh.unpack_columns,
             "expand_gauss_rows": em.expand_gauss_rows,
-            "expand_rows": em.expand_rows}
+            "expand_rows": em.expand_rows,
+            "segment_reduce_rows": rt.segment_reduce_rows,
+            "pack_columns": sh.pack_columns,
+            "expand1": em.expand1,
+            "expand2": em.expand2}
 
 
 # ---------------------------------------------------------------------------
@@ -674,23 +719,102 @@ def check_backward_kernels(args, label):
     return results
 
 
-def train_phase(dev, cfg, scaffold, cams):
-    """Phase (d): targets; the six kernels against their plain versions
-    on the arguments one training step at view 0 gave them, and that
-    step's gradients kernel path against plain path; then N_STEPS
-    training steps with the launch counters around them.  Returns each
-    kernel's line, timed at view 0's shapes, with the training path's
-    launch counts."""
+def run_steps(ts, cfg, opt, cams, targets, n, label):
+    """``n`` ``train_step`` calls through the entry point over the views
+    in turn, each at the capacity a counting pass sizes for it; losses
+    finite, no overflow.  Returns the state, the wall ms of each step
+    (each run to a sync) and each kernel's launches summed over the steps
+    alone (the counting passes between them left out)."""
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.step import train_step
+    counters = launch_counters()
+    launches = dict.fromkeys(counters, 0)
+    step_ms = []
+    for i in range(n):
+        v = i % len(cams)
+        capacity = capacity_tier(instance_demand(ts.scaffold, cfg, cams[v]))
+        before = {name: fn.launches for name, fn in counters.items()}
+        sync()
+        t0 = time.perf_counter()
+        ts, aux = train_step(ts, cams[v], *targets[v], cfg=cfg, opt=opt,
+                             is_ref=(v == 0), capacity=capacity,
+                             width=WIDTH, height=HEIGHT, accumulate=True)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, fn in counters.items():
+            launches[name] += fn.launches - before[name]
+        loss, l1, demand, n_active, _ = aux.packed.tolist()
+        require(math.isfinite(loss) and math.isfinite(l1),
+                f"{label} step {i}: loss {loss}, l1 {l1}")
+        require(demand <= capacity, f"{label} step {i}: overflow, demand "
+                f"{demand} > capacity {capacity}")
+        log(f"{label} step {i + 1} view {v}{' (ref)' if v == 0 else ''}: "
+            f"loss {loss:.6f} l1 {l1:.6f}, instances {int(demand)} of "
+            f"capacity {capacity}, active gaussians {int(n_active)}, "
+            f"{step_ms[-1]:.2f} ms")
+    log(f"{label} launches over {n} train_step calls (the counting passes "
+        f"between them left out): {launches}")
+    return ts, step_ms, launches
+
+
+def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
+    """Log the median of ``step_ms``, then ``torch.profiler`` over steps
+    on view 1 (the state advances): device busy time, launches, the idle
+    share against that median, the ranges and the largest kernels."""
+    import torch
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.step import train_step
+    median_ms = float(np.median(step_ms))
+    log(f"{label} train_step ms per step (each to a sync, counting pass "
+        f"outside): {[round(t, 3) for t in step_ms]}; median over the "
+        f"{len(step_ms)} steps {median_ms:.3f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{SMI}]")
+    cap1 = capacity_tier(int(1.125 * instance_demand(ts.scaffold, cfg,
+                                                     cams[1])))
+    state = [ts]
+
+    def one_step():
+        state[0], _ = train_step(state[0], cams[1], *targets[1], cfg=cfg,
+                                 opt=opt, is_ref=False, capacity=cap1,
+                                 width=WIDTH, height=HEIGHT, accumulate=True)
+    kernels, layers, busy_ms, wall_ms = profile_calls(
+        one_step, ("step/", "raster_bwd/"))
+    log(f"{label} profile of one step on view 1: device busy "
+        f"{busy_ms:.3f} ms in {sum(k[1] for k in kernels)} kernel "
+        f"launches; wall {wall_ms:.3f} ms under the profiler (idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); idle share against the "
+        f"median of the {len(step_ms)} steps above "
+        f"{max(0.0, 1 - busy_ms / median_ms):.3f} [{SMI}]")
+    for name, dev_ms in sorted(layers.items()):
+        log(f"  range {name}: {dev_ms:.4f} ms device")
+    # the repo's own kernels (launched through ctypes, not as PyTorch
+    # ops): the profiler may leave them out of a range's device time
+    own = {name.split("::")[1].split("(")[0]: dev_ms
+           for dev_ms, _, name in kernels
+           if name.startswith("(anonymous namespace)::")}
+    log(f"  hand-written kernels (device ms per step): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
+        + f"; ranges sum to {sum(layers.values()):.4f} ms of the "
+        f"{busy_ms:.4f} ms busy")
+    for dev_ms, calls, name in kernels[:14]:
+        log(f"  {dev_ms:9.4f} ms  x{calls:<3d} {name[:90]}")
+
+
+def train_phase(dev, cfg, scaffold, cams, targets):
+    """Phase (d): the six kernels against their plain versions on the
+    arguments one training step at view 0 gave them, and that step's
+    gradients kernel path against plain path; then N_STEPS training
+    steps with the launch counters around them.  Returns each kernel's
+    line, timed at view 0's shapes, with the training path's launch
+    counts, and the counts of every kernel over those steps."""
     import torch
     from gscream_tpu_torch.config import OptimConfig
     from gscream_tpu_torch.train.loop import capacity_tier
     from gscream_tpu_torch.train.state import init_train_state
-    from gscream_tpu_torch.train.step import (loss_and_grads, phase1_masks,
-                                              train_step)
+    from gscream_tpu_torch.train.step import loss_and_grads, phase1_masks
     t_start = time.perf_counter()
     opt = OptimConfig()
     cams = cams[:N_TRAIN_VIEWS]
-    targets = training_targets(dev, cfg, cams)
     ts = init_train_state(scaffold, cfg)
     cap0 = capacity_tier(instance_demand(scaffold, cfg, cams[0]))
 
@@ -710,56 +834,17 @@ def train_phase(dev, cfg, scaffold, cams):
     # the full step's gradients, kernel path against plain path
     with plain_kernels():
         g_p = loss_and_grads(scaffold, cams[0], *targets[0], **kw)
-    loss_k, loss_p = float(g_k.loss.detach()), float(g_p.loss.detach())
-    require(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
-            f"step loss kernel path {loss_k} vs plain path {loss_p}")
-    worst = {}
-    for name, g in list(g_k.grads.items()) + [("screen", g_k.screen)]:
-        ref = g_p.screen if name == "screen" else g_p.grads[name]
-        if not bool(ref.any()):
-            require(not bool(g.any()), f"{name}: kernel path gradient where "
-                    "the plain path has none")
-            continue
-        worst[name] = grad_close(g, ref, f"step gradient {name}")
-    log("step gradients, kernel path vs plain path (max abs err, share "
-        "beyond tolerance): " + ", ".join(
-            f"{k} {e:.2e}/{s_:.1e}" for k, (e, s_) in worst.items()))
+    compare_grads(g_k, g_p, "step gradients, kernel path vs plain path",
+                  loss_rtol=1e-4)
     del g_k, g_p
 
-    # N_STEPS steps through the entry point: each kernel's launches are
-    # summed over the steps alone, the counting passes between them left
-    # out
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    launches = dict.fromkeys(counters, 0)
-    step_ms, caps = [], []
-    for i in range(N_STEPS):
-        v = i % len(cams)
-        capacity = capacity_tier(instance_demand(ts.scaffold, cfg, cams[v]))
-        before = {name: fn.launches for name, fn in counters.items()}
-        sync()
-        t0 = time.perf_counter()
-        ts, aux = train_step(ts, cams[v], *targets[v], cfg=cfg, opt=opt,
-                             is_ref=(v == 0), capacity=capacity,
-                             width=WIDTH, height=HEIGHT, accumulate=True)
-        sync()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        for name, fn in counters.items():
-            launches[name] += fn.launches - before[name]
-        loss, l1, demand, n_active, _ = aux.packed.tolist()
-        require(math.isfinite(loss) and math.isfinite(l1),
-                f"step {i}: loss {loss}, l1 {l1}")
-        require(demand <= capacity, f"step {i}: overflow, demand {demand} "
-                f"> capacity {capacity}")
-        caps.append(capacity)
-        log(f"step {i + 1} view {v}{' (ref)' if v == 0 else ''}: loss "
-            f"{loss:.6f} l1 {l1:.6f}, instances {int(demand)} of capacity "
-            f"{capacity}, active gaussians {int(n_active)}, "
-            f"{step_ms[-1]:.2f} ms")
-    log(f"training launches over {N_STEPS} train_step calls (the counting "
-        f"passes between them left out): {launches}")
+    ts, step_ms, launches = run_steps(ts, cfg, opt, cams, targets, N_STEPS,
+                                      "training")
     for name, n in launches.items():
+        if name not in DEFAULT_ROUTE:
+            require(n == 0, f"kernel {name} of another route was launched "
+                    f"{n} times by the default training route")
+            continue
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "training path")
@@ -772,44 +857,218 @@ def train_phase(dev, cfg, scaffold, cams):
         "the densification statistics did not fill")
     for name, m in ts.m.items():
         require(bool(torch.isfinite(m).all()), f"moment {name} not finite")
-    median_ms = float(np.median(step_ms))
-    log(f"train_step ms per step (each to a sync, counting pass outside): "
-        f"{[round(t, 3) for t in step_ms]}; median over the {N_STEPS} "
-        f"steps {median_ms:.3f} ms; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{SMI}]")
-
-    # one profiled window of steps on view 1
-    cap1 = capacity_tier(int(1.125 * instance_demand(ts.scaffold, cfg,
-                                                     cams[1])))
-    state = [ts]
-
-    def one_step():
-        state[0], _ = train_step(state[0], cams[1], *targets[1], cfg=cfg,
-                                 opt=opt, is_ref=False, capacity=cap1,
-                                 width=WIDTH, height=HEIGHT, accumulate=True)
-    kernels, layers, busy_ms, wall_ms = profile_calls(
-        one_step, ("step/", "raster_bwd/"))
-    log(f"profile of one step on view 1: device busy {busy_ms:.3f} ms in "
-        f"{sum(k[1] for k in kernels)} kernel launches; wall {wall_ms:.3f} "
-        f"ms under the profiler (idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); idle share against the "
-        f"median of the {N_STEPS} steps above "
-        f"{max(0.0, 1 - busy_ms / median_ms):.3f} [{SMI}]")
-    for name, dev_ms in sorted(layers.items()):
-        log(f"  range {name}: {dev_ms:.4f} ms device")
-    # the repo's own kernels (launched through ctypes, not as PyTorch
-    # ops): the profiler may leave them out of a range's device time
-    own = {name.split("::")[1].split("(")[0]: dev_ms
-           for dev_ms, _, name in kernels
-           if name.startswith("(anonymous namespace)::")}
-    log(f"  hand-written kernels (device ms per step): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
-        + f"; ranges sum to {sum(layers.values()):.4f} ms of the "
-        f"{busy_ms:.4f} ms busy")
-    for dev_ms, calls, name in kernels[:14]:
-        log(f"  {dev_ms:9.4f} ms  x{calls:<3d} {name[:90]}")
+    profile_step(ts, cfg, opt, cams, targets, step_ms, "training")
     log(f"phase (d) took {time.perf_counter() - t_start:.1f} s")
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
+# phase (e): the Pallas-emission training configuration
+
+# record lanes the port computes bit-equal on both routes; lanes 6-8 (the
+# power coefficients) are held to rtol 1e-5, atol 1e-6, the tolerance of
+# the JAX package's own test of this build (tests/test_emission.py:65-69),
+# and reported bit-equal or not
+RECORD_EXACT = [0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13, 14, 15]
+
+
+def check_pallas_kernels(args, label):
+    """K9a, K9b, K8 and K7 bit-equal to their plain versions on the
+    arguments ``args`` the Pallas-emission route gave them, each timed
+    beside its bytes bound; returns each kernel's line, its launch count
+    left to the caller."""
+    import torch
+    from gscream_tpu_torch.ops import emission as em
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.ops import shuffle as sh
+
+    def run(fn, *a):
+        out = fn(*a)
+        sync()          # a fault during the launch surfaces here
+        return out
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    k9a, k9b = args["expand1"], args["expand2"]
+    (cols,) = args["pack_columns"]
+    ge, offsets = args["segment_reduce_rows"]
+    checks = (("K9a", em.expand1, em.expand1_plain, k9a),
+              ("K9b", em.expand2, em.expand2_plain, k9b),
+              ("K8", sh.pack_columns, sh.pack_columns_plain, (cols,)),
+              ("K7", rt.segment_reduce_rows, rt.segment_reduce_rows_plain,
+               (ge, offsets)))
+    for tag, kern, plain, a in checks:
+        require(same(run(kern, *a), run(plain, *a)),
+                f"{tag} differs from its plain version ({label})")
+    log(f"{label}: K9a, K9b, K8 and K7 bit-equal to their plain versions")
+
+    ro, _, _, row_cap = k9a[:4]
+    io, _, _, capacity = k9b[:4]
+    emit = int(((ro[1:] > ro[:-1]) & (ro[:-1] < row_cap)).sum())
+    kept = int(((io[1:] > io[:-1]) & (io[:-1] < capacity)).sum())
+    cap = ge.shape[0]
+    n = min(int(offsets[-1]), cap)
+    moved = {
+        # the row prefix, 16 + 48 bytes of each emitting gaussian's
+        # tables, the (4 + 11, row_cap) tables written
+        "expand1": nbytes(ro) + 64 * emit + 60 * row_cap,
+        # the row prefix, 12 + 44 bytes of each kept row's tables, the
+        # (14 + 2, capacity) records and indices written
+        "expand2": nbytes(io) + 56 * kept + 64 * capacity,
+        "pack_columns": 2 * 64 * cols.shape[1],
+        "segment_reduce_rows": n * 64 + nbytes(offsets)
+        + (offsets.shape[0] - 1) * 64,
+    }
+    offs64 = offsets.long()
+    specs = [
+        ("expand1", "K9a", em.expand1, em.expand1_plain, k9a, None,
+         "emission.cu", "gscream_tpu/ops/emission.py:118", 20),
+        ("expand2", "K9b", em.expand2, em.expand2_plain, k9b, None,
+         "emission.cu", "gscream_tpu/ops/emission.py:185", 20),
+        ("pack_columns", "K8", sh.pack_columns, sh.pack_columns_plain,
+         (cols,), lambda: cols.t().contiguous(), "shuffle.cu",
+         "gscream_tpu/ops/shuffle.py:59", 50),
+        ("segment_reduce_rows", "K7", rt.segment_reduce_rows,
+         rt.segment_reduce_rows_plain, (ge, offsets),
+         lambda: torch.segment_reduce(ge, "sum", offsets=offs64),
+         "segreduce.cu", "gscream_tpu/ops/rasterize_tiled.py:992", 50),
+    ]
+    results = {}
+    for name, tag, kern, plain, a, lib, src, repl, reps in specs:
+        ms = cuda_ms(lambda: kern(*a), reps=reps, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(*a), reps=1, rounds=3)
+        lib_ms = cuda_ms(lib, reps=reps, warmup=2) if lib else None
+        bound_ms = moved[name] / HBM_BYTES_PER_S * 1e3
+        results[name] = {
+            "name": f"{tag} {name}", "route": "cuda",
+            "source": f"gscream_tpu_torch/csrc/{src}", "replaces": repl,
+            "shapes": label, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "check": "bit-equal"}
+        log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms (bytes: {moved[name]}) [{SMI}]")
+    log(f"K9a: {emit} emitting gaussians, row table {row_cap}; K9b: {kept} "
+        f"kept rows, capacity {capacity}; K7: {n} live instances")
     return results
+
+
+def compare_routes(g_pallas, g_default, cap, label):
+    """The Pallas route's binning against the default route's on the same
+    splats: index fields bit-equal over the live instances, K8's records
+    against ``pack_instance_data``'s."""
+    import torch
+    from gscream_tpu_torch.ops import shuffle as sh
+    from gscream_tpu_torch.ops.rasterize_tiled import pack_instance_data
+    bp, bx = g_pallas.binning, g_default.binning
+    require(bp.cols16 is not None and bx.cols16 is None,
+            "the two steps did not take the two emission routes")
+    n = min(int(bx.num_instances), cap)
+    for f in ("num_instances", "num_rows", "tile_id", "tile_start",
+              "tile_count", "offsets"):
+        require(torch.equal(getattr(bp, f), getattr(bx, f)),
+                f"{label}: binning field {f} differs between the routes")
+    for f in ("gauss_id", "emit_slot"):
+        require(torch.equal(getattr(bp, f)[:n], getattr(bx, f)[:n]),
+                f"{label}: binning field {f} differs over the live prefix")
+    sp, dec = g_default.splats, g_default.dec
+    with torch.no_grad():
+        rec_p = sh.pack_columns(bp.cols16)[:n]
+        rec_x = pack_instance_data(sp.mean2d, sp.conic, dec.opacity,
+                                   dec.color, sp.depth, dec.uncertainty, bx,
+                                   -(-WIDTH // 32))[:n]
+    require(torch.equal(rec_p[:, RECORD_EXACT], rec_x[:, RECORD_EXACT]),
+            f"{label}: records differ outside the power coefficients")
+    a, b = rec_p[:, 6:9].double(), rec_x[:, 6:9].double()
+    err = float((a - b).abs().max())
+    require(bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all()),
+            f"{label}: k0..k2 differ beyond rtol 1e-5, atol 1e-6 ({err})")
+    log(f"{label}: binning index fields bit-equal to the default route's "
+        f"over {n} live instances; K8 records vs pack_instance_data: lanes "
+        f"{RECORD_EXACT} bit-equal, k0..k2 "
+        + ("bit-equal" if err == 0 else f"max abs err {err:.3e}"))
+
+
+def compare_grads(got, ref, label, loss_rtol):
+    """Hold one step's loss (within ``loss_rtol``) and gradients (per leaf,
+    the GRAD_* tolerance) to another's, and log each leaf's max abs error
+    and share of elements beyond the tight bound."""
+    loss, loss_ref = float(got.loss.detach()), float(ref.loss.detach())
+    require(abs(loss - loss_ref) <= loss_rtol * abs(loss_ref),
+            f"{label}: loss {loss} vs {loss_ref}")
+    worst = {}
+    for name, g in list(got.grads.items()) + [("screen", got.screen)]:
+        r = ref.screen if name == "screen" else ref.grads[name]
+        if not bool(r.any()):
+            require(not bool(g.any()), f"{label} {name}: a gradient where "
+                    "the reference has none")
+            continue
+        worst[name] = grad_close(g, r, f"{label} {name}")
+    n_equal = sum(e == 0.0 for e, _ in worst.values())
+    log(f"{label} (max abs err/share beyond tolerance; {n_equal} of "
+        f"{len(worst)} leaves bit-equal): " + ", ".join(
+            f"{k} {e:.2e}/{s_:.1e}" for k, (e, s_) in worst.items()))
+
+
+def pallas_phase(dev, cfg, scaffold, cams, targets):
+    """Phase (e): the training path under GSCREAM_EMIT=pallas
+    GSCREAM_REORDER=gather.  Returns K7's, K8's and K9's lines, timed at
+    view 0's shapes, and every kernel's launches over N_PALLAS_STEPS
+    ``train_step`` calls."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.state import init_train_state
+    from gscream_tpu_torch.train.step import loss_and_grads, phase1_masks
+    t_start = time.perf_counter()
+    opt = OptimConfig()
+    cams = cams[:N_TRAIN_VIEWS]
+    cap0 = capacity_tier(instance_demand(scaffold, cfg, cams[0]))
+    require(cap0 % 1024 == 0, f"capacity {cap0}: the selector would take "
+            "the XLA build")
+    kw = dict(cfg=cfg, opt=opt, is_ref=True, capacity=cap0,
+              masks=phase1_masks(False))
+
+    def grads():
+        return loss_and_grads(scaffold, cams[0], *targets[0], **kw)
+
+    with environ(**PALLAS_ENV):
+        g_k, args = recorded_kernel_args(grads)
+    route = sorted(args)
+    require(route == sorted(["run_forward", "run_backward", "expand1",
+                             "expand2", "pack_columns",
+                             "segment_reduce_rows"]),
+            f"the Pallas-emission route called {route}")
+    label = (f"Pallas-emission route, training view 0, capacity {cap0}, "
+             f"{int(g_k.binning.num_instances)} instances")
+    with torch.no_grad():
+        results = check_pallas_kernels(args, label)
+    del args
+
+    with environ(GSCREAM_EMIT="xla", GSCREAM_REORDER="cm"):
+        g_x = grads()
+    compare_routes(g_k, g_x, cap0, "view 0")
+    compare_grads(g_k, g_x, "step gradients, Pallas route (gather) vs "
+                  "default route (xla + cm)", loss_rtol=1e-6)
+    del g_k, g_x
+
+    with environ(**PALLAS_ENV):
+        ts, step_ms, launches = run_steps(
+            init_train_state(scaffold, cfg), cfg, opt, cams, targets,
+            N_PALLAS_STEPS, "Pallas-route")
+        for name, n in launches.items():
+            want = N_PALLAS_STEPS if name in PALLAS_ROUTE else 0
+            require(n == want, f"kernel {name} launched {n} times on the "
+                    f"Pallas-emission route, not {want}")
+        for m in ts.m.values():
+            require(bool(torch.isfinite(m).all()), "a moment is not finite")
+        profile_step(ts, cfg, opt, cams, targets, step_ms, "Pallas-route")
+    log(f"phase (e) took {time.perf_counter() - t_start:.1f} s")
+    return results, launches
 
 
 SMI = ""
@@ -957,14 +1216,21 @@ def render_phase(dev):
     return results, cfg, scaffold, cams
 
 
-def kernels_line(render, train):
+def kernels_line(render, train, train_launches, pallas, pallas_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
-    training path (this slice's main path, which runs all six), timed at
-    its view 0 and holding its launch count; beside it the render path's
-    own launch count and, for the kernels it runs, its own line."""
+    training route that runs it (K7-K9 from phase (e), the others from
+    phase (d)), timed at its view 0 and holding that route's launch
+    count; beside it both training routes' counts and the render path's,
+    and, for the kernels the render path runs, its own line."""
     out = []
     for name in launch_counters():
-        rec = dict(train[name])
+        if name in pallas:
+            rec = dict(pallas[name])
+            rec["launches"] = pallas_launches[name]
+        else:
+            rec = dict(train[name])
+        rec["launches_train"] = train_launches[name]
+        rec["launches_emit_pallas"] = pallas_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -986,9 +1252,13 @@ def main():
     build_kernels()
     dev = torch.device("cuda")
     render, cfg, scaffold, cams = render_phase(dev)
-    train = train_phase(dev, cfg, scaffold, cams)
+    targets = training_targets(dev, cfg, cams[:N_TRAIN_VIEWS])
+    train, train_launches = train_phase(dev, cfg, scaffold, cams, targets)
+    pallas, pallas_launches = pallas_phase(dev, cfg, scaffold, cams,
+                                           targets)
     # the kernels line, the card, the result
-    print(json.dumps(kernels_line(render, train)))
+    print(json.dumps(kernels_line(render, train, train_launches, pallas,
+                                  pallas_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

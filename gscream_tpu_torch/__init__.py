@@ -14,7 +14,11 @@ reached through ``train.render_sets.render_set`` and ``render_torch.py``;
 and one phase-1 training step, ``train.step.train_step``: the
 rasterizer's analytic backward (tile backward, gradient unpack,
 per-gaussian segment reduction), the losses, the masked Adam and the
-densification statistics.
+densification statistics; and the same step under the JAX package's
+Pallas-emission configuration (``GSCREAM_EMIT=pallas``: the EXPAND1/
+EXPAND2 emission and the column pack) and its row reduction modes
+(``GSCREAM_REORDER=gather|scatter|sort``: the row segment reduction).
+Every Pallas kernel of the JAX package now has its CUDA counterpart.
 
 Subpackages
 -----------

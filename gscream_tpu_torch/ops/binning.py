@@ -22,19 +22,30 @@ dropped deterministically, ``num_instances``/``num_rows`` report the
 demand, and the row table holds ``capacity // ROW_RATIO`` rows — compare
 :func:`overflow_demand` with the capacity.  Every index field is
 bit-equal to the JAX package's XLA build at the same capacity.
+
+:func:`bin_instances_pallas` (``GSCREAM_EMIT=pallas``) builds the same
+binning in five stages: A compacts the emitting gaussians, K9a
+(:func:`~.emission.expand1`) expands them to tile rows with their
+attributes, C compacts the non-empty rows, K9b
+(:func:`~.emission.expand2`) expands those to whole instance records, and
+E is step 5, carrying the records into the dense ``cols16`` columns.  No
+stage synchronises with the host: the compactions are stable sorts of a
+flag.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .emission import expand_gauss_rows, expand_rows
+from .emission import (DEPTH_INVALID, expand1, expand2, expand_gauss_rows,
+                       expand_rows)
 from .projection import Splats
 
 # instance slots per row-table slot (the row table has capacity //
 # ROW_RATIO rows); the JAX package's default
 ROW_RATIO = 2
+KE = 256          # bin_instances_pallas: capacity granularity
 
 
 def row_table_size(capacity: int) -> int:
@@ -56,8 +67,11 @@ class Binning(NamedTuple):
                               # gaussian
     num_rows: torch.Tensor    # () int32 row-table demand (may exceed
                               # capacity // ROW_RATIO!)
-    # (the JAX ``attrs`` payload and ``cols16`` Pallas-pipeline fields
-    # belong to modes this port does not have)
+    cols16: Optional[torch.Tensor] = None
+    # optional (16, capacity) float32 dense sorted instance records from
+    # the Pallas-emission build (:func:`bin_instances_pallas`);
+    # ``pack_instance_data`` transposes them into records (K8).  (The JAX
+    # ``attrs`` payload belongs to a mode this port does not have.)
 
 
 def overflow_demand(binning: Binning) -> torch.Tensor:
@@ -72,17 +86,25 @@ def num_tiles(width: int, height: int, tile_w: int, tile_h: int) -> int:
     return (-(-width // tile_w)) * (-(-height // tile_h))
 
 
+def exclusive_with_total(x: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 → (n+1,) int32 exclusive prefix sum, total appended."""
+    out = torch.zeros(x.shape[0] + 1, dtype=torch.int32, device=x.device)
+    out[1:] = torch.cumsum(x, 0, dtype=torch.int32)
+    return out
+
+
+def _rect_heights(splats: Splats) -> torch.Tensor:
+    """(N,) int32 rect heights in tile rows, 0 for a gaussian that emits
+    nothing (``binning.py:178-185``)."""
+    rmin, rmax = splats.rect_min, splats.rect_max
+    return torch.where((splats.radius > 0) & (rmax[:, 0] > rmin[:, 0]),
+                       rmax[:, 1] - rmin[:, 1], torch.zeros_like(rmin[:, 1]))
+
+
 def _row_offsets(splats: Splats) -> torch.Tensor:
     """(N+1,) int32: exclusive prefix sum of the emitting gaussians' rect
-    heights, total appended (``binning.py:178-185``)."""
-    rmin, rmax = splats.rect_min, splats.rect_max
-    rect_h = torch.where((splats.radius > 0) & (rmax[:, 0] > rmin[:, 0]),
-                         rmax[:, 1] - rmin[:, 1],
-                         torch.zeros_like(rmin[:, 1]))
-    offs = torch.zeros(rect_h.shape[0] + 1, dtype=torch.int32,
-                       device=rect_h.device)
-    offs[1:] = torch.cumsum(rect_h, 0)
-    return offs
+    heights, total appended."""
+    return exclusive_with_total(_rect_heights(splats))
 
 
 def _row_table(splats: Splats, row_cap: int, tile_w: int, tile_h: int,
@@ -114,6 +136,21 @@ def emission_counts(splats: Splats, tile_w: int, tile_h: int,
     return total, row_offs[-1]
 
 
+def sort_instances(tile, depth_bits, n_tiles: int):
+    """Step 5: one stable sort of the instance slots on ``tile << 32 |
+    depth_bits`` → (sorted tile (capacity,) int32, the sort order (the
+    emission index of each sorted slot), tile_start and tile_count
+    (n_tiles,) int32 by ``searchsorted``)."""
+    key = (tile.to(torch.int64) << 32) | depth_bits.to(torch.int64)
+    key_s, order = torch.sort(key, stable=True)
+    sorted_tile = (key_s >> 32).to(torch.int32)
+    tids = torch.arange(n_tiles, dtype=torch.int32, device=tile.device)
+    tile_start = torch.searchsorted(sorted_tile, tids, side="left")
+    tile_end = torch.searchsorted(sorted_tile, tids, side="right")
+    return (sorted_tile, order, tile_start.to(torch.int32),
+            (tile_end - tile_start).to(torch.int32))
+
+
 def bin_instances(splats: Splats, capacity: int, width: int, height: int,
                   tile_w: int, tile_h: int) -> Binning:
     """Depth-sorted per-tile instance lists at a fixed ``capacity``
@@ -125,19 +162,12 @@ def bin_instances(splats: Splats, capacity: int, width: int, height: int,
                          f"(ROW_RATIO {ROW_RATIO})")
     grid_x = -(-width // tile_w)
     n_tiles = num_tiles(width, height, tile_w, tile_h)
-    dev = splats.depth.device
 
     row_offs, rows, ioffs, total = _row_table(splats, row_cap, tile_w,
                                               tile_h, grid_x)
     inst = expand_rows(rows, ioffs, capacity, n_tiles)
-    tile, gid, depth_bits = inst[0], inst[1], inst[2]
-
-    key = (tile.to(torch.int64) << 32) | depth_bits.to(torch.int64)
-    key_s, order = torch.sort(key, stable=True)
-    sorted_tile = (key_s >> 32).to(torch.int32)
-    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
-    tile_start = torch.searchsorted(sorted_tile, tids, side="left")
-    tile_end = torch.searchsorted(sorted_tile, tids, side="right")
+    sorted_tile, order, tile_start, tile_count = sort_instances(
+        inst[0], inst[2], n_tiles)
 
     # per-gaussian emission offsets: the row prefix at each gaussian's
     # first row (empty gaussians inherit the next start), binning.py:485-490
@@ -145,11 +175,90 @@ def bin_instances(splats: Splats, capacity: int, width: int, height: int,
     goffs = ioffs_ext[torch.clamp_max(row_offs[:-1], row_cap).long()]
     offsets = torch.clamp_max(torch.cat([goffs, total.reshape(1)]),
                               capacity)
-    return Binning(gauss_id=gid[order],
+    return Binning(gauss_id=inst[1][order],
                    tile_id=sorted_tile,
-                   tile_start=tile_start.to(torch.int32),
-                   tile_count=(tile_end - tile_start).to(torch.int32),
+                   tile_start=tile_start,
+                   tile_count=tile_count,
                    num_instances=total,
                    emit_slot=order.to(torch.int32),
                    offsets=offsets,
                    num_rows=row_offs[-1])
+
+
+def _compact_order(keep: torch.Tensor) -> torch.Tensor:
+    """Positions with ``keep`` first, each part in its original order: a
+    stable sort of the drop flag (no host synchronisation)."""
+    return torch.sort((~keep).to(torch.int32), stable=True).indices
+
+
+def bin_instances_pallas(splats: Splats, opacity, colors, unc,
+                         capacity: int, width: int, height: int,
+                         tile_w: int, tile_h: int) -> Binning:
+    """Row-tight emission through EXPAND1/EXPAND2
+    (``gscream_tpu/ops/emission.py::bin_instances_pallas``, :514-639).
+
+    Returns a :class:`Binning` whose index fields equal
+    :func:`bin_instances`' over the live prefix and whose ``cols16`` holds
+    the (16, capacity) float32 records in sorted order
+    (``pack_instance_data``'s, lanes 14-15 and the slots past the live
+    instances zero).  ``capacity`` must be a multiple of 256; the row
+    table holds ``max(ceil(capacity // ROW_RATIO / 256)·256, 256)`` rows.
+    Requires ``splats.t_iso`` (tight culling)."""
+    if splats.t_iso is None:
+        raise ValueError("bin_instances_pallas requires tight culling "
+                         "(splats.t_iso); use bin_instances instead")
+    if capacity % KE:
+        raise ValueError(f"capacity {capacity} not a multiple of {KE}")
+    grid_x = -(-width // tile_w)
+    n_tiles = num_tiles(width, height, tile_w, tile_h)
+    row_cap = max(-(-row_table_size(capacity) // KE) * KE, KE)
+    dev = splats.depth.device
+    i32 = torch.int32
+
+    # --- stage A: compact the emitting gaussians (stable: original order)
+    rmin, rmax = splats.rect_min, splats.rect_max
+    rect_h = _rect_heights(splats)
+    row_offs = exclusive_with_total(rect_h)
+    order_a = _compact_order(rect_h > 0)
+    ro = exclusive_with_total(rect_h[order_a])
+    gi = torch.stack([order_a.to(i32), rmin[order_a, 1], rmin[order_a, 0],
+                      rmax[order_a, 0]], dim=1)
+    gf = torch.stack([splats.mean2d[:, 0], splats.mean2d[:, 1],
+                      splats.conic[:, 0], splats.conic[:, 1],
+                      splats.conic[:, 2], 2.0 * splats.t_iso, splats.depth,
+                      opacity, colors[:, 0], colors[:, 1], colors[:, 2],
+                      unc], dim=1)[order_a].contiguous()
+    idx, attr = expand1(ro, gi, gf, row_cap, tile_w, tile_h)
+
+    # --- stage C: compact the non-empty rows (stable: emission order)
+    kept = idx[3] > 0
+    order_c = _compact_order(kept)
+    io = exclusive_with_total(idx[3, order_c])
+    total_inst = io[row_cap]
+    rec, ids = expand2(io, idx[:3, order_c].contiguous(),
+                       attr[:, order_c].contiguous(), capacity, tile_w,
+                       tile_h, grid_x, n_tiles)
+
+    # per-gaussian emission offsets (:586-603): the instance offset at
+    # each gaussian's first row, by that row's rank among the kept rows
+    # (an empty row ranks as the next kept one).  Stage A keeps the
+    # gaussians in order, so the row prefix in gaussian order locates each
+    # first row, and a gaussian without rows takes the next one's start.
+    rank = exclusive_with_total(kept.to(i32))
+    goffs = io[rank[torch.clamp_max(row_offs[:-1], row_cap).long()].long()]
+    offsets = torch.clamp_max(torch.cat([goffs, total_inst.reshape(1)]),
+                              capacity)
+
+    # --- stage E: the (tile, depth bits) sort, carrying the records
+    slot = torch.arange(capacity, dtype=i32, device=dev)
+    valid = slot < torch.clamp_max(total_inst, capacity)
+    depth_bits = torch.where(valid, rec[4].view(i32),
+                             torch.full_like(slot, DEPTH_INVALID))
+    sorted_tile, order, tile_start, tile_count = sort_instances(
+        ids[0], depth_bits, n_tiles)
+    cols16 = torch.zeros((16, capacity), dtype=torch.float32, device=dev)
+    cols16[:14] = rec[:, order]
+    return Binning(gauss_id=ids[1, order], tile_id=sorted_tile,
+                   tile_start=tile_start, tile_count=tile_count,
+                   num_instances=total_inst, emit_slot=order.to(i32),
+                   offsets=offsets, num_rows=row_offs[-1], cols16=cols16)

@@ -1,6 +1,8 @@
 """Row-tight instance expansion: K5 and K6 (counterparts of the Pallas
 kernels ``gscream_tpu/ops/emission.py::_expand_gauss_kernel`` and
-``::_expand_rows_kernel``).
+``::_expand_rows_kernel``), and K9's EXPAND1 and EXPAND2
+(``::_expand1_kernel``, ``::_expand2_kernel``) of the Pallas-emission
+build :func:`~.binning.bin_instances_pallas`.
 
 Stage 1 (K5, :func:`expand_gauss_rows`): emitting gaussians → a table of
 tile rows ``(tile_base, gid, depth_bits, w_row)``, gaussian-major and
@@ -20,6 +22,13 @@ slot to its source, then a gather.  Kernel and plain version are
 bit-equal: both evaluate the same float32 expressions one rounding at a
 time, and both write zeros (K5) or ``(n_tiles, 0, 2^30)`` (K6) to the
 slots past the live total, where the JAX package leaves don't-care values.
+
+K9a (:func:`expand1`) expands the compacted emitting gaussians to tile
+rows with their attributes, K9b (:func:`expand2`) the compacted non-empty
+rows to whole instance records.  They are K5 and K6 with the payload
+carried along, the same binary-search design and the same bit-equality
+with their plain versions; every index stays an int32 in a tensor of its
+own, where the TPU kernels carried indices as float32.
 """
 from __future__ import annotations
 
@@ -197,3 +206,125 @@ def expand_rows(rows, ioffs, capacity: int, n_tiles: int) -> torch.Tensor:
 
 
 expand_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the Pallas-emission build (GSCREAM_EMIT=pallas)
+
+def expand1_plain(ro, gi, gf, row_cap: int, tile_w: int, tile_h: int):
+    """Plain version of K9a; see :func:`expand1`."""
+    dev = gf.device
+    n = gi.shape[0]
+    total_rows = ro[n]
+    src = _source_of(torch.where(ro[1:] > ro[:-1], ro[:-1],
+                                 torch.full_like(ro[:-1], row_cap)),
+                     torch.arange(n, dtype=torch.int32, device=dev), row_cap,
+                     dev)
+    rslot = torch.arange(row_cap, dtype=torch.int32, device=dev)
+    i, f = gi[src], gf[src]
+    ty, txmin, w_row = _row_extents(
+        rslot, ro[src], i[:, 1], i[:, 2], i[:, 3], f[:, 0], f[:, 1],
+        f[:, 2], f[:, 3], f[:, 4], f[:, 5], total_rows, tile_w, tile_h)
+    live = rslot < total_rows
+    zero = torch.zeros_like(rslot)
+    idx = torch.stack([torch.where(live, i[:, 0], zero),
+                       torch.where(live, ty, zero),
+                       torch.where(live, txmin, zero), w_row])
+    attr = torch.cat([f[:, :5], f[:, 6:]], dim=1).T
+    return idx, torch.where(live, attr, torch.zeros_like(attr)).contiguous()
+
+
+def expand1(ro, gi, gf, row_cap: int, tile_w: int, tile_h: int):
+    """K9a, EXPAND1: the compacted emitting gaussians → the row table.
+
+    ``ro`` (n+1,) int32 is the exclusive prefix sum of the compacted rect
+    heights with the total appended; compacted gaussian ``c`` owns rows
+    ``[ro[c], ro[c+1])``, truncated at ``row_cap``.  ``gi`` (n, 4) int32
+    holds ``[gid, rect ymin, rect xmin, rect xmax]``, ``gf`` (n, 12)
+    float32 ``[mx, my, ca, cb, cc, t2, depth, op, r, g, b, unc]``.
+    Returns the (4, row_cap) int32 ``[gid, ty, txmin, w_row]`` (``w_row``
+    as K5 computes it) and the (11, row_cap) float32 ``[mx, my, ca, cb,
+    cc, depth, op, r, g, b, unc]`` of each row's gaussian; rows at or past
+    the total hold zeros."""
+    if gf.device.type == "cpu":
+        return expand1_plain(ro, gi, gf, row_cap, tile_w, tile_h)
+    n = gi.shape[0]
+    cb.check(ro, "ro", torch.int32, (n + 1,))
+    cb.check(gi, "gi", torch.int32, (n, 4))
+    cb.check(gf, "gf", torch.float32, (n, 12))
+    idx = torch.empty((4, row_cap), dtype=torch.int32, device=gf.device)
+    attr = torch.empty((11, row_cap), dtype=torch.float32, device=gf.device)
+    fn = cb.function("emission", "gs_expand1", "pppiiiippp")
+    rc = fn(cb.ptr(ro), cb.ptr(gi), cb.ptr(gf), n, row_cap, tile_w, tile_h,
+            cb.ptr(idx), cb.ptr(attr), cb.stream_of(gf))
+    cb.raise_on_error(rc, "expand1")
+    expand1.launches += 1
+    return idx, attr
+
+
+expand1.launches = 0
+
+
+def expand2_plain(io, ri, rf, capacity: int, tile_w: int, tile_h: int,
+                  grid_x: int, n_tiles: int):
+    """Plain version of K9b; see :func:`expand2`.  The coefficients are
+    ``pack_instance_data``'s expressions, one rounding per operation."""
+    dev = rf.device
+    row_cap = ri.shape[1]
+    row_of = _source_of(torch.where(io[1:] > io[:-1], io[:-1],
+                                    torch.full_like(io[:-1], capacity)),
+                        torch.arange(row_cap, dtype=torch.int32, device=dev),
+                        capacity, dev)
+    slot = torch.arange(capacity, dtype=torch.int32, device=dev)
+    valid = slot < torch.clamp_max(io[row_cap], capacity)
+    ty = ri[1, row_of]
+    tx = ri[2, row_of] + (slot - io[row_of])
+    ox = (tx * tile_w).to(torch.float32)
+    oy = (ty * tile_h).to(torch.float32)
+    mx, my, ca, cb_, cc, depth, op, r, g, b, unc = rf[:, row_of]
+    mxl = mx - ox
+    myl = my - oy
+    k0 = -0.5 * (ca * mxl * mxl + cc * myl * myl) - cb_ * mxl * myl
+    k1 = ca * mxl + cb_ * myl
+    k2 = cc * myl + cb_ * mxl
+    rec = torch.stack([op, r, g, b, depth, unc, k0, k1, k2, -0.5 * ca,
+                       -cb_, -0.5 * cc, ox - torch.round(mx),
+                       oy - torch.round(my)])
+    ids = torch.stack([
+        torch.where(valid, ty * grid_x + tx, torch.full_like(tx, n_tiles)),
+        torch.where(valid, ri[0, row_of], torch.zeros_like(tx))])
+    return torch.where(valid, rec, torch.zeros_like(rec)), ids
+
+
+def expand2(io, ri, rf, capacity: int, tile_w: int, tile_h: int,
+            grid_x: int, n_tiles: int):
+    """K9b, EXPAND2: the compacted non-empty rows → instance records in
+    emission order.
+
+    ``io`` (row_cap+1,) int32 is the exclusive prefix sum of the
+    compacted ``w_row`` with the total appended; row ``r`` owns slots
+    ``[io[r], io[r+1])``, truncated at ``capacity``.  ``ri`` (3, row_cap)
+    int32 ``[gid, ty, txmin]`` and ``rf`` (11, row_cap) float32 are K9a's
+    tables, compacted.  Returns the (14, capacity) float32 records ``[op,
+    r, g, b, depth, unc, k0..k5, sx, sy]`` (``pack_instance_data``'s
+    lanes 0-13) and the (2, capacity) int32 ``[tile, gid]``; slots at or
+    past ``min(total, capacity)`` hold zeros and tile ``n_tiles``."""
+    if rf.device.type == "cpu":
+        return expand2_plain(io, ri, rf, capacity, tile_w, tile_h, grid_x,
+                             n_tiles)
+    row_cap = ri.shape[1]
+    cb.check(io, "io", torch.int32, (row_cap + 1,))
+    cb.check(ri, "ri", torch.int32, (3, row_cap))
+    cb.check(rf, "rf", torch.float32, (11, row_cap))
+    rec = torch.empty((14, capacity), dtype=torch.float32, device=rf.device)
+    ids = torch.empty((2, capacity), dtype=torch.int32, device=rf.device)
+    fn = cb.function("emission", "gs_expand2", "pppiiiiiippp")
+    rc = fn(cb.ptr(io), cb.ptr(ri), cb.ptr(rf), row_cap, capacity, tile_w,
+            tile_h, grid_x, n_tiles, cb.ptr(rec), cb.ptr(ids),
+            cb.stream_of(rf))
+    cb.raise_on_error(rc, "expand2")
+    expand2.launches += 1
+    return rec, ids
+
+
+expand2.launches = 0

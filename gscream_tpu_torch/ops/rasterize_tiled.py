@@ -24,20 +24,30 @@ pair of the JAX package, :1180-1250) runs
 4. :func:`pergauss_chain`: moments → d_mean2d, d_conic, d_opacity, once
    per gaussian.
 
+Steps 2-3 are the default ``GSCREAM_REORDER=cm``.  The row modes
+(``gather``, ``scatter``, ``sort``; :func:`segment_reduce_grads`) scatter
+K2's rows to emission order as rows and sum them with K7
+(:func:`segment_reduce_rows`).  :func:`build_binning` is the JAX
+package's emission selector: ``GSCREAM_EMIT=pallas`` builds the binning
+with :func:`~.binning.bin_instances_pallas`, whose dense sorted records
+:func:`pack_instance_data` transposes with K8
+(:func:`~.shuffle.pack_columns`).  Both variables are read at call time.
+
 The binning gets no gradient.  No step uses atomics, so the gradient of a
 rerun is bit-equal.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
 
 from . import cuda_build as cb
-from .binning import Binning
-from .projection import ALPHA_MAX, ALPHA_MIN, T_STOP
-from .shuffle import unpack_columns
+from .binning import Binning, bin_instances, bin_instances_pallas
+from .projection import ALPHA_MAX, ALPHA_MIN, T_STOP, Splats
+from .shuffle import pack_columns, unpack_columns
 
 TILE_W = 32           # pixels per tile, x
 TILE_H = 32           # pixels per tile, y
@@ -65,7 +75,12 @@ def pack_instance_data(mean2d, conic, opacity, colors, depth, unc,
     in sorted order, with the tile-local power coefficients and the
     centering shifts precomputed (legacy mode).  Slots past the live
     instances gather gaussian 0 at tile ``num_tiles``: finite, and outside
-    every tile's range, so never read."""
+    every tile's range, so never read.  A binning that carries its sorted
+    records as dense columns (``cols16``, the Pallas-emission build) is
+    transposed by K8 instead (rasterize_tiled.py:164-174); its slots past
+    the live instances are zero."""
+    if binning.cols16 is not None:
+        return pack_columns(binning.cols16)
     a = gauss_attrs(mean2d, conic, opacity, colors, depth, unc)[
         binning.gauss_id.long()]
     tile = binning.tile_id
@@ -271,24 +286,29 @@ def pergauss_chain(pg, mean2d, conic, opacity):
     return d_mean2d, d_conic, d_op, d_col, d_depth, d_unc
 
 
-def segment_reduce_cm_plain(cols: torch.Tensor,
-                            offsets: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3; see :func:`segment_reduce_cm`.  Step j adds
-    the j-th instance of every gaussian's run at once, so each sum is
-    taken in emission order, one rounding per addition, as the kernel
-    takes it: the two are bit-equal."""
-    cap = cols.shape[1]
+def _run_sums(values_at, offsets: torch.Tensor, cap: int) -> torch.Tensor:
+    """(N, 16) sums of ``values_at(e)`` over each gaussian's run ``e`` in
+    ``[offsets[g], offsets[g+1])``, the offsets clamped to ``cap``.  Step
+    j adds the j-th instance of every run at once, so each sum is taken
+    in emission order, one rounding per addition, as K3 and K7 take it:
+    kernel and plain version are bit-equal."""
     offs = torch.clamp_max(offsets.long(), cap)
     lo, hi = offs[:-1], offs[1:]
-    out = torch.zeros((lo.shape[0], cols.shape[0]), dtype=torch.float32,
-                      device=cols.device)
+    out = torch.zeros((lo.shape[0], ILANES), dtype=torch.float32,
+                      device=offsets.device)
     longest = int((hi - lo).max()) if lo.numel() else 0
     for j in range(longest):
         e = lo + j
         valid = (e < hi)[:, None]
-        vals = cols[:, torch.clamp_max(e, cap - 1)].T
+        vals = values_at(torch.clamp_max(e, cap - 1))
         out = out + torch.where(valid, vals, torch.zeros_like(vals))
     return out
+
+
+def segment_reduce_cm_plain(cols: torch.Tensor,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3; see :func:`segment_reduce_cm`."""
+    return _run_sums(lambda e: cols[:, e].T, offsets, cols.shape[1])
 
 
 def segment_reduce_cm(cols: torch.Tensor,
@@ -316,12 +336,72 @@ segment_reduce_cm.launches = 0
 
 def emission_columns(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
     """K2's (capacity, 16) rows in sorted order → (16, capacity) columns in
-    emission order: K4, then the column scatter ``out[:, emit_slot] =
-    cols``.  ``emit_slot`` is a permutation of the slots, so the scatter
-    is bit-equal to the JAX package's stable sort on it (:1079-1083)."""
+    emission order (``reduce_grads_cm``, :1044-1083): K4, which zeroes the
+    non-finite entries as it transposes (its sanitize, :1073), then the
+    column scatter ``out[:, emit_slot] = cols``.  ``emit_slot`` is a
+    permutation of the slots, so the scatter is bit-equal to the JAX
+    package's stable sort on it (:1079-1083)."""
     cols = unpack_columns(rows)
     return torch.empty_like(cols).index_copy_(1, binning.emit_slot.long(),
                                               cols)
+
+
+def segment_reduce_rows_plain(rows: torch.Tensor,
+                              offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7; see :func:`segment_reduce_rows`."""
+    return _run_sums(lambda e: rows[e], offsets, rows.shape[0])
+
+
+def segment_reduce_rows(rows: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """K7: (capacity, 16) float32 rows in emission order and the (N+1,)
+    int32 emission offsets → (N, 16) sums of each gaussian's run
+    ``[offsets[g], offsets[g+1])``, the offsets clamped to the capacity
+    (``segment_reduce_grads``' kernel, rasterize_tiled.py:992-1032)."""
+    if rows.device.type == "cpu":
+        return segment_reduce_rows_plain(rows, offsets)
+    cb.check(rows, "rows", torch.float32, (None, ILANES))
+    cb.check(offsets, "offsets", torch.int32, (None,))
+    n = offsets.shape[0] - 1
+    out = torch.empty((n, ILANES), dtype=torch.float32, device=rows.device)
+    fn = cb.function("segreduce", "gs_segment_reduce_rows", "ppiipp")
+    rc = fn(cb.ptr(rows), cb.ptr(offsets), n, rows.shape[0], cb.ptr(out),
+            cb.stream_of(rows))
+    cb.raise_on_error(rc, "segment_reduce_rows")
+    segment_reduce_rows.launches += 1
+    return out
+
+
+segment_reduce_rows.launches = 0
+
+
+def _reorder_mode() -> str:
+    """``GSCREAM_REORDER`` (rasterize_tiled.py:1035-1041)."""
+    mode = os.environ.get("GSCREAM_REORDER", "cm")
+    if mode not in ("cm", "gather", "scatter", "sort"):
+        raise ValueError(
+            f"GSCREAM_REORDER={mode!r}: must be one of "
+            "'cm', 'gather', 'scatter', 'sort'")
+    return mode
+
+
+def segment_reduce_grads(conv: torch.Tensor,
+                         binning: Binning) -> torch.Tensor:
+    """(capacity, 16) sorted-order K2 rows → (N, 16) per-gaussian sums in
+    the row modes of ``GSCREAM_REORDER`` (rasterize_tiled.py:1087-1165):
+    the row scatter ``out[emit_slot] = conv`` into emission order, then K7
+    sums each gaussian's run.  The JAX package's three modes (``gather``,
+    ``scatter``, ``sort``) differ only in how they lower on the TPU: each
+    takes the rows to emission order by the permutation ``emit_slot``, and
+    the one that carries lanes 1-11 alone (``sort``) drops lanes K2 writes
+    as zeros.  So one reorder serves all three, bit-equal to each.  Unlike
+    the cm flow, nothing is sanitized here, as in the JAX package."""
+    if _reorder_mode() == "cm":
+        raise ValueError("GSCREAM_REORDER=cm routes through "
+                         "segment_reduce_cm, not segment_reduce_grads")
+    ge = torch.empty_like(conv).index_copy_(0, binning.emit_slot.long(),
+                                            conv)
+    return segment_reduce_rows(ge, binning.offsets)
 
 
 def pixel_rows(raw_c, d_img, u_img, t_img, bg, g_color, g_depth, g_unc,
@@ -375,11 +455,21 @@ class _RasterizeTiled(torch.autograd.Function):
             rows = run_backward(inst, pix, binning.tile_start,
                                 binning.tile_count,
                                 binning.tile_start.shape[0])
-        with record_function("raster_bwd/K4 unpack + reorder"):
-            ge = emission_columns(rows, binning)
-        with record_function("raster_bwd/K3 segment_reduce + chain"):
-            grads = pergauss_chain(segment_reduce_cm(ge, binning.offsets),
-                                   mean2d, conic, op)
+        # the per-gaussian sums (rasterize_tiled.py:1224-1237)
+        if os.environ.get("GSCREAM_SCATTER_REDUCE"):
+            raise NotImplementedError(
+                "GSCREAM_SCATTER_REDUCE (an atomic segment_sum) is not "
+                "ported; unset it")
+        if _reorder_mode() == "cm":
+            with record_function("raster_bwd/K4 unpack + reorder"):
+                ge = emission_columns(rows, binning)
+            with record_function("raster_bwd/K3 segment_reduce"):
+                pg = segment_reduce_cm(ge, binning.offsets)
+        else:
+            with record_function("raster_bwd/reorder + K7 segment_reduce"):
+                pg = segment_reduce_grads(rows, binning)
+        with record_function("raster_bwd/chain"):
+            grads = pergauss_chain(pg, mean2d, conic, op)
             # out_color = C + T·bg  ⇒  d bg = Σ_p T_p · g_color_p
             d_bg = (t_img[None] * gc).sum(dim=(1, 2))
         return grads + (d_bg, None, None, None)
@@ -394,3 +484,34 @@ def rasterize_tiled(mean2d, conic, opacity, colors, depth, unc,
     return TiledOut(*_RasterizeTiled.apply(mean2d, conic, opacity, colors,
                                            depth, unc, bg, binning, width,
                                            height))
+
+
+def build_binning(splats: Splats, opacity, colors, unc, capacity: int,
+                  width: int, height: int) -> Binning:
+    """The JAX package's emission selector (rasterize_tiled.py:1259-1292),
+    with its conditions, read at call time: ``GSCREAM_EMIT=pallas`` takes
+    :func:`~.binning.bin_instances_pallas` when the capacity is a
+    multiple of 1024, else (as for ``GSCREAM_EMIT=xla``, the default)
+    :func:`~.binning.bin_instances`.  Where the JAX package would take a
+    mode the port does not have — raw-coefficient kernels
+    (``GSCREAM_KERNEL_COEFF=1``), full-rect emission
+    (``GSCREAM_ROW_TIGHT=0`` or no ``t_iso``) or the XLA build's fused
+    sort key (``GSCREAM_SORT_FUSED``) — this raises
+    ``NotImplementedError``.
+    Call it under ``torch.no_grad()``: the binning carries no gradient."""
+    env = os.environ.get
+    if env("GSCREAM_KERNEL_COEFF", "0") == "1":
+        raise NotImplementedError("GSCREAM_KERNEL_COEFF=1 (raw-coefficient "
+                                  "kernels) is not ported")
+    if env("GSCREAM_ROW_TIGHT") == "0":
+        raise NotImplementedError("GSCREAM_ROW_TIGHT=0 (full-rect "
+                                  "emission) is not ported")
+    if (env("GSCREAM_EMIT", "xla") == "pallas" and splats.t_iso is not None
+            and env("GSCREAM_SORT_FUSED") != "1" and capacity % 1024 == 0):
+        return bin_instances_pallas(splats, opacity, colors, unc, capacity,
+                                    width, height, TILE_W, TILE_H)
+    if env("GSCREAM_SORT_FUSED"):
+        raise NotImplementedError("GSCREAM_SORT_FUSED (the fused sort key "
+                                  "of the XLA build) is not ported")
+    # splats without t_iso (full-rect emission) raise in bin_instances
+    return bin_instances(splats, capacity, width, height, TILE_W, TILE_H)

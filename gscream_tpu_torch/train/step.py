@@ -30,9 +30,10 @@ from ..config import OptimConfig
 from ..model.densify import accumulate_stats
 from ..model.scaffold import Decoded, ScaffoldConfig, ScaffoldState, decode
 from ..ops import losses as L
-from ..ops.binning import Binning, bin_instances, overflow_demand
+from ..ops.binning import Binning, overflow_demand
 from ..ops.projection import Splats, preprocess
-from ..ops.rasterize_tiled import TILE_H, TILE_W, rasterize_tiled
+from ..ops.rasterize_tiled import (TILE_H, TILE_W, build_binning,
+                                   rasterize_tiled)
 from ..ops.ssim import ssim, ssim_masked
 from .state import TrainState, apply_adam, group_of, lr_tree, named_params
 
@@ -59,10 +60,11 @@ def pack_aux(loss, l1, num_instances, n_active, cross_ok) -> StepAux:
 def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
                        bg, screen_zero, cfg: ScaffoldConfig, capacity: int):
     """Decode + rasterize from explicit (differentiable) parameters;
-    returns (TiledOut, Decoded, Splats, Binning).  The binning runs under
-    ``torch.no_grad()`` (the JAX ``stop_gradient``, rasterize_tiled.py:
-    1276-1277): gradients reach the gaussians only through the
-    rasterizer's own arguments."""
+    returns (TiledOut, Decoded, Splats, Binning).  The binning goes
+    through the emission selector ``build_binning`` (``GSCREAM_EMIT``)
+    under ``torch.no_grad()`` (the JAX ``stop_gradient``,
+    rasterize_tiled.py:1276-1277): gradients reach the gaussians only
+    through the rasterizer's own arguments."""
     st = scaffold._replace(params=params, mlps=mlps)
     w, h = camera.width, camera.height
     with record_function("step/decode"):
@@ -74,7 +76,8 @@ def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
             active_mask=dec.active, opacity=dec.opacity)
         mean2d = splats.mean2d + screen_zero
     with record_function("step/binning"), torch.no_grad():
-        binning = bin_instances(splats, capacity, w, h, TILE_W, TILE_H)
+        binning = build_binning(splats, dec.opacity, dec.color,
+                                dec.uncertainty, capacity, w, h)
     with record_function("step/forward"):
         out = rasterize_tiled(mean2d, splats.conic, dec.opacity, dec.color,
                               splats.depth, dec.uncertainty, binning, bg, w,

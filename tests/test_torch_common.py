@@ -25,9 +25,10 @@ def torch_splats(s):
 
 def torch_binning(b):
     """JAX ``Binning`` → the port's ``Binning`` (dropping the JAX-only
-    ``attrs``/``cols16`` fields)."""
+    ``attrs`` field; ``cols16`` stays ``None`` where JAX's is)."""
     from gscream_tpu_torch.ops.binning import Binning
-    return Binning(*(to_torch(getattr(b, f)) for f in Binning._fields))
+    fields = (getattr(b, f) for f in Binning._fields)
+    return Binning(*(None if x is None else to_torch(x) for x in fields))
 
 
 def assert_close_flip_aware(got, ref, name, atol=2e-4, rtol=2e-3,

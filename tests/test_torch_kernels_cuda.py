@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: K5, K6, K4 and K3 bit-equal, K1 within 1e-4·max(1, |plain|) except
+card: K5, K6, K4, K3, K7, K8, K9a and K9b bit-equal, K1 within
+1e-4·max(1, |plain|) except
 where the T < 1e-4 stop moves by one instance (≤ 0.1% of the outputs),
 K2 per output lane within 1e-3·scale + 1e-2·|plain| (scale = max |plain|)
 except ≤ 0.5% of the rows, all within 5e-2·scale (the sums run in other
@@ -152,10 +153,98 @@ def test_unpack_and_segment_reduce_bit_equal(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, rt.segment_reduce_cm_plain(ge, b.offsets))
     assert float(got[:, 6].abs().max()) > 0
-    # a ragged width and offsets past the capacity (clamped)
+    # a ragged width, non-finite values (zeroed) and offsets past the
+    # capacity (clamped)
     odd = torch.randn((1000, 16), device=dev)
+    odd[5, 3], odd[17, 7] = float("nan"), float("inf")
+    odd[999, 15] = -float("inf")
     assert torch.equal(sh.unpack_columns(odd), sh.unpack_columns_plain(odd))
+    assert not sh.unpack_columns(odd)[[3, 7, 15], [5, 17, 999]].any()
     offs = torch.tensor([0, 3, 3, 700, 1500], dtype=torch.int32, device=dev)
     cols = sh.unpack_columns(odd)
     assert torch.equal(rt.segment_reduce_cm(cols, offs),
                        rt.segment_reduce_cm_plain(cols, offs))
+
+
+@pytest.mark.parametrize("seed,capacity", [(0, 1 << 14), (1, 1024)])
+def test_pallas_emission_kernels_bit_equal(dev, monkeypatch, seed,
+                                           capacity):
+    """K9a, K9b and K8 on the arguments ``bin_instances_pallas`` gives
+    them (at 1024 the row table overflows), and its binning equal to the
+    XLA build's with records equal to ``pack_instance_data``'s."""
+    from gscream_tpu_torch.ops import binning as bn
+    from gscream_tpu_torch.ops import emission as em
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.ops import shuffle as sh
+    s, (colors, op, unc), w, h = _splats(dev, seed)
+    args = {}
+    for name in ("expand1", "expand2"):
+        def record(*a, _name=name, _fn=getattr(bn, name)):
+            args[_name] = a
+            return _fn(*a)
+        monkeypatch.setattr(bn, name, record)
+    b = bn.bin_instances_pallas(s, op, colors, unc, capacity, w, h, 32, 32)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for name, plain in (("expand1", em.expand1_plain),
+                        ("expand2", em.expand2_plain)):
+        got = getattr(em, name)(*args[name])
+        torch.cuda.synchronize()
+        for g, p in zip(got, plain(*args[name])):
+            assert torch.equal(g, p), name
+    rec = sh.pack_columns(b.cols16)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, sh.pack_columns_plain(b.cols16))
+    a = bn.bin_instances(s, capacity, w, h, 32, 32)
+    n = min(int(a.num_instances), capacity)
+    for f in ("num_instances", "num_rows", "tile_id", "tile_start",
+              "tile_count", "offsets"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.gauss_id[:n], b.gauss_id[:n])
+    ref = rt.pack_instance_data(s.mean2d, s.conic, op, colors, s.depth, unc,
+                                a, -(-w // 32))
+    assert torch.equal(rec[:n], ref[:n])
+    odd = torch.randn((16, 1000), device=dev)
+    assert torch.equal(sh.pack_columns(odd), sh.pack_columns_plain(odd))
+
+
+def test_expand2_rounds_half_to_even(dev):
+    """sx, sy of centres at x.5: the kernel's ``rintf`` against
+    ``torch.round`` (both half to even)."""
+    from gscream_tpu_torch.ops import emission as em
+    rf = torch.zeros((11, 4), device=dev)
+    rf[0] = torch.tensor([40.5, 41.5, -2.5, 33.25])
+    rf[1] = torch.tensor([7.5, 8.5, 0.5, 64.75])
+    rf[2] = rf[4] = 0.5
+    io = torch.arange(5, dtype=torch.int32, device=dev)
+    ri = torch.tensor([[0, 1, 2, 3], [1, 2, 0, 1], [1, 0, 2, 3]],
+                      dtype=torch.int32, device=dev)
+    got = em.expand2(io, ri, rf, 256, 32, 32, 4, 12)
+    torch.cuda.synchronize()
+    want = em.expand2_plain(io, ri, rf, 256, 32, 32, 4, 12)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    assert got[0][12, :4].tolist() == [32 - 40, 0 - 42, 64 + 2, 96 - 33]
+
+
+def test_segment_reduce_rows_bit_equal(dev, monkeypatch):
+    """K7 on K2's rows in emission order, the row modes and the cm flow
+    equal to it, and K7 at a ragged width with offsets past the capacity
+    (clamped)."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    args, b = _backward_inputs(dev, 1)
+    rows = rt.run_backward(*args)
+    ge = rows[torch.sort(b.emit_slot.long(), stable=True).indices]
+    got = rt.segment_reduce_rows(ge, b.offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rt.segment_reduce_rows_plain(ge, b.offsets))
+    assert float(got[:, 6].abs().max()) > 0
+    for mode in ("gather", "scatter", "sort"):
+        monkeypatch.setenv("GSCREAM_REORDER", mode)
+        assert torch.equal(rt.segment_reduce_grads(rows, b), got), mode
+    cm = rt.segment_reduce_cm(rt.emission_columns(rows, b), b.offsets)
+    assert torch.equal(cm, got)
+    odd = torch.randn((1000, 16), device=dev)
+    offs = torch.tensor([0, 3, 3, 700, 1500], dtype=torch.int32, device=dev)
+    assert torch.equal(rt.segment_reduce_rows(odd, offs),
+                       rt.segment_reduce_rows_plain(odd, offs))
