@@ -28,7 +28,9 @@ catches its own failure):
     view 0 with the arguments of every kernel call recorded, all six
     kernels held against their plain versions and timed on those
     arguments (K2 within tolerance and bit-equal to the path's own
-    output, K4 and K3 bit-equal), the step's gradients kernel path
+    output, K4 and K3 bit-equal, K3 also on a rerun and to K7 on the
+    transposed columns; K3's line carries the run statistics that set its
+    time), the step's gradients kernel path
     against plain path, then ``N_STEPS`` ``train_step`` calls over
     reference and other views with the launch counters reset just before
     and summed over the steps alone (each step's capacity is sized by a
@@ -37,7 +39,9 @@ catches its own failure):
 (e) the Pallas-emission training configuration (``GSCREAM_EMIT=pallas
     GSCREAM_REORDER=gather``) on the same scene and targets: one step's
     gradients at view 0 with the kernel arguments recorded, K9a, K9b, K8
-    and K7 held bit-equal to their plain versions and timed on them, the
+    and K7 held bit-equal to their plain versions and timed on them (K7
+    also on a rerun and to K3 on the transposed rows, with its run
+    statistics), the
     route's binning held to the default route's (index fields bit-equal
     over the live instances, K8's records against
     ``pack_instance_data``'s), the step's gradients against the default
@@ -431,6 +435,52 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def run_stats(offsets, cap):
+    """What sets K3's and K7's time on this data: the live instances, the
+    gaussians with a non-empty run, the run lengths (median, mean, p99,
+    p99.9 over those, the longest), the 32-instance chunks, the most
+    chunks one run spans (level 2's longest chain), and the share of
+    useful lanes had one thread per gaussian walked its run (each warp of
+    32 gaussians waiting on its longest)."""
+    import torch
+    offs = offsets.long().clamp_max(cap)
+    lo, hi = offs[:-1], offs[1:]
+    n_live = int(offs[-1])
+    runs = hi - lo
+    emit = runs > 0
+    if not bool(emit.any()):
+        return {"live": n_live, "emitting": 0}
+    lens = runs[emit].double()
+    q = torch.quantile(lens, torch.tensor([0.5, 0.99, 0.999],
+                                          dtype=torch.float64,
+                                          device=lens.device)).tolist()
+    span = ((hi - 1) // 32 - lo // 32 + 1)[emit]
+    warps = torch.nn.functional.pad(runs, (0, -runs.shape[0] % 32))
+    serial = int(warps.reshape(-1, 32).amax(1).sum())
+    return {"live": n_live, "emitting": int(emit.sum()),
+            "median_run": q[0], "mean_run": float(lens.mean()),
+            "p99_run": q[1], "p999_run": q[2], "longest_run": int(lens.max()),
+            "chunks": -(-n_live // 32), "longest_span": int(span.max()),
+            "thread_per_gaussian_lane_use": n_live / (32 * serial)}
+
+
+def check_segment_reduce(tag, kern, plain, other, values, offsets, label):
+    """``kern`` (K3 or K7) bit-equal to its plain version and to itself on
+    a rerun, and to ``other`` (the other layout's kernel) on the
+    transposed values; returns its output."""
+    import torch
+    out = kern(values, offsets)
+    sync()              # a fault during the launch surfaces here
+    require(torch.equal(out, plain(values, offsets)),
+            f"{tag} differs from its plain version ({label})")
+    require(torch.equal(out, kern(values, offsets)),
+            f"{tag} rerun is not bit-equal ({label})")
+    require(torch.equal(out, other(values.T.contiguous(), offsets)),
+            f"K3 and K7 differ on the same values ({label})")
+    sync()
+    return out
+
+
 def sync():
     import torch
     torch.cuda.synchronize()
@@ -658,13 +708,15 @@ def check_backward_kernels(args, label):
     cols = run(sh.unpack_columns, rows)
     require(torch.equal(cols, sh.unpack_columns_plain(rows)),
             f"K4 differs from its plain version ({label})")
-    seg = run(rt.segment_reduce_cm, ge, offsets)
-    require(torch.equal(seg, run(rt.segment_reduce_cm_plain, ge, offsets)),
-            f"K3 differs from its plain version ({label})")
+    seg = check_segment_reduce("K3", rt.segment_reduce_cm,
+                               rt.segment_reduce_cm_plain,
+                               rt.segment_reduce_rows, ge, offsets, label)
     require(bool(seg[:, 6].abs().max() > 0), "K3 summed no moment")
+    runs = run_stats(offsets, cap)
     log(f"{label}: K2 max abs err {k2_err:.3e}, worst lane's share beyond "
         f"tolerance {k2_share:.2e}, rerun bit-equal; K4 bit-equal "
-        f"{tuple(cols.shape)}; K3 bit-equal {tuple(seg.shape)}")
+        f"{tuple(cols.shape)}; K3 bit-equal {tuple(seg.shape)}, rerun "
+        "bit-equal, K7 on the transposed columns bit-equal")
 
     work = k1_work(inst, ts, tc)
     flops = (K1_OPS_EVAL * work["eval"] + K1_OPS_EXP * work["exp"]
@@ -689,7 +741,9 @@ def check_backward_kernels(args, label):
          lambda: rt.segment_reduce_cm_plain(ge, offsets),
          lambda: torch.segment_reduce(rows_t, "sum", offsets=offs64),
          "segreduce.cu", "gscream_tpu/ops/rasterize_tiled.py:899", 0.0,
-         k3_moved / HBM_BYTES_PER_S, "bytes", "bit-equal", 50),
+         k3_moved / HBM_BYTES_PER_S, "bytes",
+         "bit-equal, rerun bit-equal, equal to K7 on the transposed "
+         "columns", 50),
         ("unpack_columns", "K4", lambda: sh.unpack_columns(rows),
          lambda: sh.unpack_columns_plain(rows), lambda: rows.t().contiguous(),
          "shuffle.cu", "gscream_tpu/ops/shuffle.py:75", 0.0,
@@ -707,10 +761,13 @@ def check_backward_kernels(args, label):
             "shapes": label, "max_abs_err": e, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": by,
             "library_ms": lib_ms, "check": check}
+        if tag == "K3":
+            results[name]["runs"] = runs
         log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
-            + f", bound {bound_s * 1e3:.4f} ms ({by}) [{SMI}]")
+            + f", bound {bound_s * 1e3:.4f} ms ({by})"
+            + (f", runs {runs}" if tag == "K3" else "") + f" [{SMI}]")
     log(f"K2 pairs {work}, float32 operations {flops} "
         f"({flops / F32_OPS_PER_S * 1e3:.4f} ms), exponentials "
         f"{work['exp'] / EX2_PER_S * 1e3:.4f} ms, bytes {k2_moved} "
@@ -757,6 +814,17 @@ def run_steps(ts, cfg, opt, cams, targets, n, label):
     return ts, step_ms, launches
 
 
+def own_kernel_names():
+    """The names of the ``__global__`` functions in the port's CUDA
+    sources (a template's profiler name adds its arguments)."""
+    import re
+    from gscream_tpu_torch.ops import cuda_build
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)")
+    return {name for src in cuda_build.CSRC.glob("*.cu")
+            for name in pat.findall(src.read_text())}
+
+
 def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
     """Log the median of ``step_ms``, then ``torch.profiler`` over steps
     on view 1 (the state advances): device busy time, launches, the idle
@@ -789,9 +857,13 @@ def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
         log(f"  range {name}: {dev_ms:.4f} ms device")
     # the repo's own kernels (launched through ctypes, not as PyTorch
     # ops): the profiler may leave them out of a range's device time
-    own = {name.split("::")[1].split("(")[0]: dev_ms
-           for dev_ms, _, name in kernels
-           if name.startswith("(anonymous namespace)::")}
+    mine = own_kernel_names()
+    own = {}
+    for dev_ms, _, name in kernels:
+        short = name.removeprefix("void ").removeprefix(
+            "(anonymous namespace)::").split("(")[0]
+        if short.split("<")[0] in mine:
+            own[short] = dev_ms
     log(f"  hand-written kernels (device ms per step): "
         + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
         + f"; ranges sum to {sum(layers.values()):.4f} ms of the "
@@ -897,13 +969,15 @@ def check_pallas_kernels(args, label):
     ge, offsets = args["segment_reduce_rows"]
     checks = (("K9a", em.expand1, em.expand1_plain, k9a),
               ("K9b", em.expand2, em.expand2_plain, k9b),
-              ("K8", sh.pack_columns, sh.pack_columns_plain, (cols,)),
-              ("K7", rt.segment_reduce_rows, rt.segment_reduce_rows_plain,
-               (ge, offsets)))
+              ("K8", sh.pack_columns, sh.pack_columns_plain, (cols,)))
     for tag, kern, plain, a in checks:
         require(same(run(kern, *a), run(plain, *a)),
                 f"{tag} differs from its plain version ({label})")
-    log(f"{label}: K9a, K9b, K8 and K7 bit-equal to their plain versions")
+    check_segment_reduce("K7", rt.segment_reduce_rows,
+                         rt.segment_reduce_rows_plain, rt.segment_reduce_cm,
+                         ge, offsets, label)
+    log(f"{label}: K9a, K9b, K8 and K7 bit-equal to their plain versions; "
+        "K7 rerun bit-equal, K3 on the transposed rows bit-equal")
 
     ro, _, _, row_cap = k9a[:4]
     io, _, _, capacity = k9b[:4]
@@ -911,6 +985,7 @@ def check_pallas_kernels(args, label):
     kept = int(((io[1:] > io[:-1]) & (io[:-1] < capacity)).sum())
     cap = ge.shape[0]
     n = min(int(offsets[-1]), cap)
+    runs = run_stats(offsets, cap)
     moved = {
         # the row prefix, 16 + 48 bytes of each emitting gaussian's
         # tables, the (4 + 11, row_cap) tables written
@@ -948,10 +1023,15 @@ def check_pallas_kernels(args, label):
             "shapes": label, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": lib_ms, "check": "bit-equal"}
+        if tag == "K7":
+            results[name]["check"] = ("bit-equal, rerun bit-equal, equal to "
+                                      "K3 on the transposed rows")
+            results[name]["runs"] = runs
         log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
-            + f", bound {bound_ms:.4f} ms (bytes: {moved[name]}) [{SMI}]")
+            + f", bound {bound_ms:.4f} ms (bytes: {moved[name]})"
+            + (f", runs {runs}" if tag == "K7" else "") + f" [{SMI}]")
     log(f"K9a: {emit} emitting gaussians, row table {row_cap}; K9b: {kept} "
         f"kept rows, capacity {capacity}; K7: {n} live instances")
     return results

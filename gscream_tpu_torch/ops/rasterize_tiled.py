@@ -33,8 +33,31 @@ with :func:`~.binning.bin_instances_pallas`, whose dense sorted records
 :func:`pack_instance_data` transposes with K8
 (:func:`~.shuffle.pack_columns`).  Both variables are read at call time.
 
-The binning gets no gradient.  No step uses atomics, so the gradient of a
-rerun is bit-equal.
+K3 and K7 and their plain versions share one summation order, which
+depends on the offsets alone.  Let ``n_live = min(offsets[N], cap)``
+and cut the instances ``[0, n_live)``, in emission order, into chunks of
+:data:`SEG_CHUNK` = 32 (one warp): chunk ``c = [32c, 32c + 32)``.
+Inside a chunk, the instances of one gaussian form a segment.
+
+1. Inside a chunk: a segmented Hillis–Steele inclusive scan over the 32
+   slots for ``d = 1, 2, 4, 8, 16``.  Slot ``i``, whose segment starts at
+   slot ``s`` (the slot of ``max(offsets[g], 32c)``), takes
+   ``v[i] + v_prev[i − d]`` if ``i − d ≥ s`` and keeps ``v[i]``
+   otherwise.  A segment's chunk partial is ``v`` at its last slot in the
+   chunk.
+2. Across chunks: a gaussian whose run lies in one chunk takes that
+   partial; one whose run spans chunks ``c0 … c1`` adds its partials left
+   to right, ``((p[c0] + p[c0+1]) + …) + p[c1]``, starting from
+   ``p[c0]``.
+3. An empty run, or one the capacity clamps away, gives a row of zeros.
+4. Masking is a select (``torch.where``), never a multiply: a NaN or inf
+   in one gaussian's instance cannot reach a neighbour in the same
+   chunk, and stays in that gaussian's own sum.
+
+So kernel and plain version are bit-equal, and so are K3 and K7 on the
+same values; against the JAX package, which sums by indicator matmuls,
+they agree to rtol 1e-5.  The binning gets no gradient.  No step uses
+atomics, so the gradient of a rerun is bit-equal.
 """
 from __future__ import annotations
 
@@ -53,6 +76,7 @@ TILE_W = 32           # pixels per tile, x
 TILE_H = 32           # pixels per tile, y
 PIX = TILE_W * TILE_H
 ILANES = 16           # floats per instance record
+SEG_CHUNK = 32        # instances per chunk of K3/K7's order: one warp
 
 
 class TiledOut(NamedTuple):
@@ -286,29 +310,78 @@ def pergauss_chain(pg, mean2d, conic, opacity):
     return d_mean2d, d_conic, d_op, d_col, d_depth, d_unc
 
 
-def _run_sums(values_at, offsets: torch.Tensor, cap: int) -> torch.Tensor:
-    """(N, 16) sums of ``values_at(e)`` over each gaussian's run ``e`` in
-    ``[offsets[g], offsets[g+1])``, the offsets clamped to ``cap``.  Step
-    j adds the j-th instance of every run at once, so each sum is taken
-    in emission order, one rounding per addition, as K3 and K7 take it:
-    kernel and plain version are bit-equal."""
-    offs = torch.clamp_max(offsets.long(), cap)
-    lo, hi = offs[:-1], offs[1:]
+def _chunk_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(N, 16) sums of the (cap, 16) ``values`` over each gaussian's run in
+    the order of the module docstring, vectorized: the live slots as
+    (chunks, 32, 16), five ``torch.where`` scan steps, each segment's
+    partial at its last slot, then a loop over the chunk index that adds a
+    spanning run's partials left to right."""
+    cap = values.shape[0]
+    offs = offsets.long()
+    lo = torch.clamp_max(offs[:-1], cap)
+    hi = torch.clamp_max(offs[1:], cap)
     out = torch.zeros((lo.shape[0], ILANES), dtype=torch.float32,
-                      device=offsets.device)
-    longest = int((hi - lo).max()) if lo.numel() else 0
-    for j in range(longest):
-        e = lo + j
-        valid = (e < hi)[:, None]
-        vals = values_at(torch.clamp_max(e, cap - 1))
-        out = out + torch.where(valid, vals, torch.zeros_like(vals))
+                      device=values.device)
+    n_live = min(int(offs[-1]), cap)
+    chunks = -(-n_live // SEG_CHUNK)
+    if chunks == 0 or lo.numel() == 0:
+        return out
+    slots = chunks * SEG_CHUNK
+    e = torch.arange(slots, device=values.device)
+    g = torch.searchsorted(offs, e, right=True) - 1     # the slot's gaussian
+    base = e - e % SEG_CHUNK
+    start = torch.clamp_min(offs[torch.clamp_min(g, 0)], base) - base
+    # a slot past the live instances or before offsets[0] has no segment
+    start = torch.where((g >= 0) & (e < n_live), start, SEG_CHUNK)
+    lane = (e % SEG_CHUNK).reshape(chunks, SEG_CHUNK, 1)
+    start = start.reshape(chunks, SEG_CHUNK, 1)
+    v = torch.zeros((slots, ILANES), dtype=torch.float32,
+                    device=values.device)
+    v[:n_live] = values[:n_live]
+    v = v.reshape(chunks, SEG_CHUNK, ILANES)
+    d = 1
+    while d < SEG_CHUNK:
+        up = torch.zeros_like(v)
+        up[:, d:] = v[:, :-d]
+        v = torch.where(lane - d >= start, v + up, v)
+        d *= 2
+    v = v.reshape(slots, ILANES)
+
+    emit = hi > lo
+    c0 = torch.div(lo, SEG_CHUNK, rounding_mode="floor")
+    c1 = torch.div(hi - 1, SEG_CHUNK, rounding_mode="floor")
+
+    def partial(c):     # each run's partial in chunk c: v at its last slot
+        last = torch.minimum(hi - 1, c * SEG_CHUNK + SEG_CHUNK - 1)
+        return v[torch.clamp(last, 0, slots - 1)]
+    acc = partial(c0)
+    span = int((c1 - c0)[emit].max()) if bool(emit.any()) else 0
+    for j in range(1, span + 1):
+        acc = torch.where((c0 + j <= c1)[:, None], acc + partial(c0 + j),
+                          acc)
+    return torch.where(emit[:, None], acc, out)
+
+
+def _segment_reduce(src: torch.Tensor, offsets: torch.Tensor, cap: int,
+                    symbol: str) -> torch.Tensor:
+    """Launch K3 or K7 (``symbol``) on ``src``: both levels, with the
+    (2, chunks, 16) scratch partials allocated here."""
+    cb.check(offsets, "offsets", torch.int32, (None,))
+    n = offsets.shape[0] - 1
+    out = torch.empty((n, ILANES), dtype=torch.float32, device=src.device)
+    scratch = torch.empty((2, -(-cap // SEG_CHUNK), ILANES),
+                          dtype=torch.float32, device=src.device)
+    fn = cb.function("segreduce", symbol, "ppiippp")
+    rc = fn(cb.ptr(src), cb.ptr(offsets), n, cap, cb.ptr(scratch),
+            cb.ptr(out), cb.stream_of(src))
+    cb.raise_on_error(rc, symbol)
     return out
 
 
 def segment_reduce_cm_plain(cols: torch.Tensor,
                             offsets: torch.Tensor) -> torch.Tensor:
     """Plain version of K3; see :func:`segment_reduce_cm`."""
-    return _run_sums(lambda e: cols[:, e].T, offsets, cols.shape[1])
+    return _chunk_sums(cols.T, offsets)
 
 
 def segment_reduce_cm(cols: torch.Tensor,
@@ -316,17 +389,11 @@ def segment_reduce_cm(cols: torch.Tensor,
     """K3: (16, capacity) float32 columns in emission order and the (N+1,)
     int32 emission offsets → (N, 16) sums of each gaussian's run
     ``[offsets[g], offsets[g+1])``, the offsets clamped to the capacity
-    (rasterize_tiled.py:939-989)."""
+    (rasterize_tiled.py:939-989), in the order of the module docstring."""
     if cols.device.type == "cpu":
         return segment_reduce_cm_plain(cols, offsets)
     cb.check(cols, "cols", torch.float32, (ILANES, None))
-    cb.check(offsets, "offsets", torch.int32, (None,))
-    n = offsets.shape[0] - 1
-    out = torch.empty((n, ILANES), dtype=torch.float32, device=cols.device)
-    fn = cb.function("segreduce", "gs_segment_reduce", "ppiipp")
-    rc = fn(cb.ptr(cols), cb.ptr(offsets), n, cols.shape[1], cb.ptr(out),
-            cb.stream_of(cols))
-    cb.raise_on_error(rc, "segment_reduce")
+    out = _segment_reduce(cols, offsets, cols.shape[1], "gs_segment_reduce")
     segment_reduce_cm.launches += 1
     return out
 
@@ -349,7 +416,7 @@ def emission_columns(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
 def segment_reduce_rows_plain(rows: torch.Tensor,
                               offsets: torch.Tensor) -> torch.Tensor:
     """Plain version of K7; see :func:`segment_reduce_rows`."""
-    return _run_sums(lambda e: rows[e], offsets, rows.shape[0])
+    return _chunk_sums(rows, offsets)
 
 
 def segment_reduce_rows(rows: torch.Tensor,
@@ -357,17 +424,14 @@ def segment_reduce_rows(rows: torch.Tensor,
     """K7: (capacity, 16) float32 rows in emission order and the (N+1,)
     int32 emission offsets → (N, 16) sums of each gaussian's run
     ``[offsets[g], offsets[g+1])``, the offsets clamped to the capacity
-    (``segment_reduce_grads``' kernel, rasterize_tiled.py:992-1032)."""
+    (``segment_reduce_grads``' kernel, rasterize_tiled.py:992-1032), in
+    the order of the module docstring: bit-equal to K3 on the transposed
+    values."""
     if rows.device.type == "cpu":
         return segment_reduce_rows_plain(rows, offsets)
     cb.check(rows, "rows", torch.float32, (None, ILANES))
-    cb.check(offsets, "offsets", torch.int32, (None,))
-    n = offsets.shape[0] - 1
-    out = torch.empty((n, ILANES), dtype=torch.float32, device=rows.device)
-    fn = cb.function("segreduce", "gs_segment_reduce_rows", "ppiipp")
-    rc = fn(cb.ptr(rows), cb.ptr(offsets), n, rows.shape[0], cb.ptr(out),
-            cb.stream_of(rows))
-    cb.raise_on_error(rc, "segment_reduce_rows")
+    out = _segment_reduce(rows, offsets, rows.shape[0],
+                          "gs_segment_reduce_rows")
     segment_reduce_rows.launches += 1
     return out
 

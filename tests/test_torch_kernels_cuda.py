@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card: K5, K6, K4, K3, K7, K8, K9a and K9b bit-equal, K1 within
+card: K5, K6, K4, K3, K7, K8, K9a and K9b bit-equal (K3 and K7 also on
+a rerun, to each other, and on runs up to 2,000 long), K1 within
 1e-4·max(1, |plain|) except
 where the T < 1e-4 stop moves by one instance (≤ 0.1% of the outputs),
 K2 per output lane within 1e-3·scale + 1e-2·|plain| (scale = max |plain|)
@@ -140,6 +141,36 @@ def test_tile_backward_close(dev, seed):
         assert float(err.max()) <= 5e-2 * scale, lane
 
 
+def _long_runs(dev, seed=5):
+    """Emission-order (cap, 16) rows and int32 offsets of 600 gaussians:
+    runs of 0-39 instances, every 7th empty, 12 of 100-2,000 that cross
+    many 32-instance chunks; a capacity that is not a multiple of 32, with
+    the last runs clamped or clamped away."""
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(0, 40, 600)
+    runs[rng.choice(590, 12, replace=False)] = rng.integers(100, 2001, 12)
+    runs[::7] = 0
+    offs = np.concatenate([[0], np.cumsum(runs)]).astype(np.int32)
+    cap = int(offs[-1]) - 1237
+    cap -= cap % 32 == 0
+    assert (np.minimum(offs[1:], cap) - np.minimum(offs[:-1], cap)).max() \
+        > 1000
+    rows = rng.normal(size=(cap, 16)).astype(np.float32)
+    return (torch.as_tensor(rows, device=dev),
+            torch.as_tensor(offs, device=dev))
+
+
+def _segment_reduce_cases(kern, plain, other, values, offs):
+    """``kern`` (K3 or K7) bit-equal to its plain version, to a rerun and
+    to ``other`` (the other layout's kernel) on the transposed values."""
+    got = kern(values, offs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(values, offs))
+    assert torch.equal(got, kern(values, offs))
+    assert torch.equal(got, other(values.T.contiguous(), offs))
+    return got
+
+
 def test_unpack_and_segment_reduce_bit_equal(dev):
     from gscream_tpu_torch.ops import rasterize_tiled as rt
     from gscream_tpu_torch.ops import shuffle as sh
@@ -149,10 +180,15 @@ def test_unpack_and_segment_reduce_bit_equal(dev):
     torch.cuda.synchronize()
     assert torch.equal(cols, sh.unpack_columns_plain(rows))
     ge = rt.emission_columns(rows, b)
-    got = rt.segment_reduce_cm(ge, b.offsets)
-    torch.cuda.synchronize()
-    assert torch.equal(got, rt.segment_reduce_cm_plain(ge, b.offsets))
+    got = _segment_reduce_cases(rt.segment_reduce_cm,
+                                rt.segment_reduce_cm_plain,
+                                rt.segment_reduce_rows, ge, b.offsets)
     assert float(got[:, 6].abs().max()) > 0
+    # runs up to 2,000 long, a ragged capacity and offsets past it
+    long_rows, long_offs = _long_runs(dev)
+    _segment_reduce_cases(rt.segment_reduce_cm, rt.segment_reduce_cm_plain,
+                          rt.segment_reduce_rows,
+                          long_rows.T.contiguous(), long_offs)
     # a ragged width, non-finite values (zeroed) and offsets past the
     # capacity (clamped)
     odd = torch.randn((1000, 16), device=dev)
@@ -229,16 +265,37 @@ def test_expand2_rounds_half_to_even(dev):
 
 def test_segment_reduce_rows_bit_equal(dev, monkeypatch):
     """K7 on K2's rows in emission order, the row modes and the cm flow
-    equal to it, and K7 at a ragged width with offsets past the capacity
-    (clamped)."""
+    equal to it; K7 on runs up to 2,000 long and at a ragged width, with
+    offsets past the capacity (clamped); a NaN, +inf and -inf in one
+    instance stay in its gaussian's sum."""
     from gscream_tpu_torch.ops import rasterize_tiled as rt
     args, b = _backward_inputs(dev, 1)
     rows = rt.run_backward(*args)
     ge = rows[torch.sort(b.emit_slot.long(), stable=True).indices]
-    got = rt.segment_reduce_rows(ge, b.offsets)
-    torch.cuda.synchronize()
-    assert torch.equal(got, rt.segment_reduce_rows_plain(ge, b.offsets))
+    got = _segment_reduce_cases(rt.segment_reduce_rows,
+                                rt.segment_reduce_rows_plain,
+                                rt.segment_reduce_cm, ge, b.offsets)
     assert float(got[:, 6].abs().max()) > 0
+    long_rows, long_offs = _long_runs(dev)
+    clean = _segment_reduce_cases(rt.segment_reduce_rows,
+                                  rt.segment_reduce_rows_plain,
+                                  rt.segment_reduce_cm, long_rows, long_offs)
+    offs = long_offs.tolist()
+    g = next(g for g in range(5, len(offs) - 1)
+             if offs[g + 1] - offs[g] >= 3 and offs[g] % 32 > 0
+             and offs[g + 1] < long_rows.shape[0])
+    bad = long_rows.clone()
+    bad[offs[g] + 1, 3], bad[offs[g] + 1, 7] = float("nan"), float("inf")
+    bad[offs[g] + 1, 10] = -float("inf")
+    dirty = rt.segment_reduce_rows(bad, long_offs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dirty, rt.segment_reduce_rows_plain(
+        bad, long_offs), rtol=0, atol=0, equal_nan=True)
+    others = torch.arange(len(offs) - 1, device=dev) != g
+    torch.testing.assert_close(dirty[others], clean[others], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.isnan(dirty[g, 3]) and float(dirty[g, 7]) == float("inf")
+    assert float(dirty[g, 10]) == -float("inf")
     for mode in ("gather", "scatter", "sort"):
         monkeypatch.setenv("GSCREAM_REORDER", mode)
         assert torch.equal(rt.segment_reduce_grads(rows, b), got), mode

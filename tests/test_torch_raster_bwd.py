@@ -18,7 +18,8 @@ Tolerances:
   sequentially, so a pixel's T < 1e-4 stop can move by one instance, and
   ``Total − prefix`` cancels digits where ``Total`` is large.
 * K3: rtol 1e-5 + atol 1e-6·scale: the JAX kernel sums each run by an
-  indicator matmul, the port in emission order.
+  indicator matmul, the port in the chunked order of its module
+  docstring.
 * ``pergauss_chain``: the same float32 expressions, rtol 1e-6.
 """
 import jax

@@ -21,8 +21,9 @@ shares no cache with that one and leaves none behind, and spies prove
 that both packages took the route.
 
 Tolerances: K7 against the Pallas kernel rtol 1e-5, atol 1e-6 (the
-Pallas kernel sums each block by indicator matmuls, the port in emission
-order); the three modes, the cm flow on finite rows and the port's two
+Pallas kernel sums each block by indicator matmuls, the port in the
+chunked order of ``gscream_tpu_torch/ops/rasterize_tiled.py``); the three
+modes, the cm flow on finite rows and the port's two
 routes bit-equal to each other.
 """
 import jax
@@ -100,8 +101,9 @@ def test_segment_reduce_grads_matches_jax(case, monkeypatch, mode):
 @pytest.mark.timeout(120)
 def test_reorder_modes_bit_equal(case, monkeypatch):
     """The three row modes, and the cm flow (K4, the column scatter, K3),
-    give the same sums bit for bit: each adds a gaussian's instances in
-    emission order."""
+    give the same sums bit for bit: K3 and K7 share one summation order
+    (32-instance chunks, a segmented scan inside each, the chunk partials
+    left to right), which depends on the offsets alone."""
     from gscream_tpu_torch.ops import rasterize_tiled as rt
     b = case["b"]
     sums = {}
