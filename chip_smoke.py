@@ -30,7 +30,10 @@ catches its own failure):
     arguments (K2 within tolerance and bit-equal to the path's own
     output, K4 and K3 bit-equal, K3 also on a rerun and to K7 on the
     transposed columns; K3's line carries the run statistics that set its
-    time), the step's gradients kernel path
+    time), K1 and K2 blending the same pairs (at every pixel of every
+    tile, K1's Σw bit-equal to the w K2 gives each instance there, summed
+    in K1's order), K1 and K2 built with -DGS_NO_CULL bit-equal to the
+    port's (the cull changes nothing), the step's gradients kernel path
     against plain path, then ``N_STEPS`` ``train_step`` calls over
     reference and other views with the launch counters reset just before
     and summed over the steps alone (each step's capacity is sized by a
@@ -53,7 +56,12 @@ catches its own failure):
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), the others from phase (d), with the
 render path's and each training route's launch counts and the render
-path's line beside it), then the card's
+path's line beside it; K1's and K2's lines also carry the tile-count
+distribution, the registers, shared and local memory and CTAs per SM
+that the card reports for the loaded kernels, the no-cull builds' times
+and, with ``--parent DIR``, the times of DIR's K1 and K2 measured in
+turns with the port's: ``python3 chip_smoke.py --parent DIR``, DIR a
+checkout of an earlier tree), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
@@ -486,6 +494,264 @@ def sync():
     torch.cuda.synchronize()
 
 
+def tile_stats(tile_count):
+    """The tile-count distribution that sets K1's and K2's time: the
+    number of tiles, the mean, p99 and most instances per tile, and the
+    empty tiles."""
+    import torch
+    c = tile_count.double()
+    return {"tiles": int(c.numel()), "mean": float(c.mean()),
+            "p99": float(torch.quantile(c, 0.99)), "max": int(c.max()),
+            "empty": int((c == 0).sum())}
+
+
+def ptxas_stats(log: str, kernel: str):
+    """Registers, static shared memory and spills of the ``__global__``
+    function ``kernel`` from an ``nvcc -Xptxas -v`` log."""
+    import re
+    stats, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or kernel not in current:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, ln)
+            if m:
+                stats[key] = int(m.group(1))
+    return stats
+
+
+def kernel_attributes(name, symbol):
+    """What the card reports for the loaded kernel behind the C entry
+    ``symbol`` of ``csrc/<name>.cu`` (``gs::kernel_attributes``,
+    ``cudaFuncGetAttributes``): registers per thread, static shared
+    memory, local memory per thread (0: no spills) and CTAs per SM."""
+    import ctypes
+    from gscream_tpu_torch.ops import cuda_build as cb
+    out = (ctypes.c_int * 4)()
+    cb.raise_on_error(cb.function(name, symbol, "p")(
+        ctypes.cast(out, ctypes.c_void_p)), symbol)
+    return dict(zip(("registers", "smem_bytes", "local_bytes",
+                     "ctas_per_sm"), out))
+
+
+# K1's Σw at a pixel is a float32 sum of n terms w ≥ 0 (products by 1.0,
+# exact); in any order it lies within γ(n − 1)·Σw of the exact sum,
+# γ(k) = k·u/(1 − k·u), u = 2^-24 (Higham, Accuracy and Stability of
+# Numerical Algorithms, §4.2)
+F32_UNIT = 2.0 ** -24
+AGREE_PIXELS = 5        # pixels per backward call: one per cotangent lane
+AGREE_GROUP = 255       # pixels whose weights are held at once
+
+
+def blend_agreement(inst, tile_start, tile_count, n_tiles, forward,
+                    backward, pixels=range(1024)):
+    """K1's and K2's weights w = α·T at each tile's pixels ``pixels``, on
+    the records with their five channels r, g, b, depth, unc set to 1.
+    K1's row 1 at a pixel is then Σ w over the instances it blends there,
+    summed in float32 in instance order; K2's lane c + 1 of an instance
+    is its w at the pixel whose cotangent c alone is 1 (one term, exact),
+    five pixels per call.  Returns, each (n_tiles, len(pixels)): K1's
+    sums, K2's w summed in float32 in instance order (K1's own order),
+    in float64, and the count of K2's nonzero w.  The tile ranges must be
+    ascending and contiguous from slot 0."""
+    import torch
+    dev = inst.device
+    pixels = [int(q) for q in pixels]
+    rec = inst.clone()
+    rec[:, 1:6] = 1.0
+    k1 = forward(rec, tile_start, tile_count, n_tiles)[:, 1][:, pixels]
+    starts, counts = tile_start.long(), tile_count.long()
+    n_live = int(starts[-1] + counts[-1]) if n_tiles else 0
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                      counts)
+    seq = torch.zeros_like(k1)
+    s64 = torch.zeros(k1.shape, dtype=torch.float64, device=dev)
+    n = torch.zeros(k1.shape, dtype=torch.float64, device=dev)
+    for g0 in range(0, len(pixels), AGREE_GROUP):
+        cols = slice(g0, min(g0 + AGREE_GROUP, len(pixels)))
+        w = torch.empty((n_live, cols.stop - g0), dtype=torch.float32,
+                        device=dev)
+        for c0 in range(g0, cols.stop, AGREE_PIXELS):
+            group = pixels[c0:min(c0 + AGREE_PIXELS, cols.stop)]
+            pix = torch.zeros((n_tiles, 8, 1024), dtype=torch.float32,
+                              device=dev)
+            for lane, q in enumerate(group):
+                pix[:, lane, q] = 1.0
+            rows = backward(rec, pix, tile_start, tile_count, n_tiles)
+            w[:, c0 - g0:c0 - g0 + len(group)] = rows[:n_live,
+                                                      1:1 + len(group)]
+        acc = seq[:, cols]
+        for k in range(int(counts.max()) if n_tiles else 0):
+            live = (counts > k)[:, None]
+            acc = torch.where(live, acc + w[(starts + k).clamp_max(
+                n_live - 1)], acc)
+        seq[:, cols] = acc
+        s64[:, cols].index_add_(0, tile_of, w.double())
+        n[:, cols].index_add_(0, tile_of, (w != 0).double())
+    return k1, seq, s64, n
+
+
+def check_agreement(inst, tile_start, tile_count, n_tiles, forward,
+                    backward, label, pixels=range(1024), sequential=True):
+    """:func:`blend_agreement` held per (tile, pixel): K1's Σw within
+    γ(n − 1)·Σw of K2's float64 sum of the same n weights, which any
+    float32 order keeps, and with ``sequential`` (K1's kernel, which sums
+    in instance order) bit-equal to K2's weights summed in that order.
+    A pair that one side blends and the other does not moves Σw by its w,
+    which the first test sees above 2·γ(n − 1)·Σw and the second once it
+    moves the float32 sum.  Returns (pairs of (tile, pixel) checked, the
+    largest |K1 − float64 sum| over its limit, the pairs bit-equal to the
+    sequential sum)."""
+    import torch
+    k1, seq, s64, n = blend_agreement(inst, tile_start, tile_count,
+                                      n_tiles, forward, backward, pixels)
+    ku = (n - 1).clamp_min(0) * F32_UNIT
+    limit = ku / (1 - ku) * s64
+    err = (k1.double() - s64).abs()
+    ratio = float(torch.where(err == 0, torch.zeros_like(err),
+                              err / limit.clamp_min(1e-300)).max())
+    same = int((k1 == seq).sum())
+    require(ratio <= 1.0, f"K1 and K2 blend different pairs ({label}): "
+            f"Σw at a pixel differs from K2's by {ratio:.3g} times the "
+            "float32 rounding limit")
+    require(not sequential or same == k1.numel(), f"K1 and K2 blend "
+            f"different pairs ({label}): Σw at {k1.numel() - same} of "
+            f"{k1.numel()} (tile, pixel) pairs differs from K2's weights "
+            "summed in K1's order")
+    return k1.numel(), ratio, same
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 built from other sources or flags (the parent's with
+# ``--parent DIR``; the port's with -DGS_NO_CULL, which evaluates every
+# pair), called through their own C signatures
+
+PARENT = {}
+NOCULL = {}
+TILE_SYMBOLS = {"rasterize_fwd": ("gs_tile_forward", "tile_forward_kernel"),
+                "rasterize_bwd": ("gs_tile_backward", "tile_backward_kernel")}
+
+
+def nvcc_start(src, so, extra=()):
+    """Start ``nvcc`` on ``src`` with the port's flags and ``extra``;
+    returns the process (:func:`tile_kernel_from` waits for it)."""
+    from gscream_tpu_torch.ops import cuda_build as cb
+    os.makedirs(os.path.dirname(str(so)), exist_ok=True)
+    return subprocess.Popen(
+        [cb.nvcc()] + cb.ARCH + cb.BASE_FLAGS + list(extra)
+        + ["-o", str(so), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def tile_kernel_from(kind, src, so, proc):
+    """Once ``proc`` built ``src`` (a K1 source if ``kind`` is
+    ``rasterize_fwd``, a K2 source if ``rasterize_bwd``) into ``so``: a
+    function with its wrapper's arguments (``run_forward``'s or
+    ``run_backward``'s) that calls the C entry with the arguments named
+    by its parameter names (``work`` gets scratch of 1 + n_tiles int32),
+    and the kernel's ``ptxas`` statistics."""
+    import ctypes
+    import re
+    import torch
+    from gscream_tpu_torch.ops import cuda_build as cb
+    out, _ = proc.communicate()
+    require(proc.returncode == 0, f"nvcc of {src} failed:\n{out}")
+    symbol, kernel = TILE_SYMBOLS[kind]
+    decl = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)",
+                     open(src).read()).group(1)
+    params = [(("i" if re.match(r"\s*int\s+\w+\s*$", a) else "p"),
+               re.findall(r"\w+", a)[-1]) for a in decl.split(",")]
+    fn = getattr(ctypes.CDLL(str(so)), symbol)
+    fn.argtypes = [ctypes.c_int if k == "i" else ctypes.c_void_p
+                   for k, _ in params]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        if kind == "rasterize_fwd":
+            inst, ts, tc, n_tiles = args
+            out = torch.empty((n_tiles, 8, 1024), device=inst.device)
+            named = dict(inst=inst, tile_start=ts, tile_count=tc,
+                         n_tiles=n_tiles, out=out)
+        else:
+            inst, pix, ts, tc, n_tiles = args
+            out = torch.empty_like(inst)
+            named = dict(inst=inst, pix=pix, tile_start=ts, tile_count=tc,
+                         n_tiles=n_tiles, capacity=inst.shape[0], out=out)
+        named["work"] = torch.empty(1 + n_tiles, dtype=torch.int32,
+                                    device=inst.device)
+        vals = [cb.stream_of(inst) if n == "stream" else named[n]
+                if k == "i" else cb.ptr(named[n]) for k, n in params]
+        cb.raise_on_error(fn(*vals), f"{src}")
+        return out
+    return call, ptxas_stats(out, kernel)
+
+
+def variant_build(root, tag, extra=()):
+    """Start ``nvcc`` on ``root``'s ``rasterize_fwd.cu`` and
+    ``rasterize_bwd.cu`` with ``extra``; :func:`variant_load` finishes."""
+    from gscream_tpu_torch.ops import cuda_build as cb
+    procs = {}
+    for kind in TILE_SYMBOLS:
+        src = os.path.join(root, "gscream_tpu_torch", "csrc", f"{kind}.cu")
+        so = cb.BUILD / f"lib{tag}_{kind}.so"
+        procs[kind] = (src, so, nvcc_start(src, so, extra))
+    return procs
+
+
+def variant_load(procs, into, tag):
+    for kind, (src, so, proc) in procs.items():
+        into[kind] = tile_kernel_from(kind, src, so, proc)
+        log(f"{tag} {kind} built from {src}: ptxas {into[kind][1]}")
+
+
+def time_against_parent(name, kern, args, reps, new_ms, plain, check):
+    """The parent's kernel beside the new one in turns (new, parent,
+    parent, new; ``new_ms`` is the first), after holding the parent's
+    output to the plain version with ``check``; ``parent_ms`` null
+    without ``--parent``."""
+    if name not in PARENT:
+        return {"parent_ms": None, "parent": "not measured (no --parent)"}
+    call, ptx = PARENT[name]
+    check(call(*args), plain)
+    p1 = cuda_ms(lambda: call(*args), reps=reps, warmup=2)
+    p2 = cuda_ms(lambda: call(*args), reps=reps, warmup=2)
+    n2 = cuda_ms(lambda: kern(*args), reps=reps, warmup=2)
+    return {"parent_ms": [p1, p2], "new_ms_turns": [new_ms, n2],
+            "parent_ptxas": ptx}
+
+
+def check_without_cull(k1_args, k2_args, label):
+    """K1 and K2 built with -DGS_NO_CULL, which evaluate every (instance,
+    block) pair, bit-equal to the port's on the same arguments: the cull
+    (``may_pass``, ``csrc/blend.cuh``) changes no output.  Returns the
+    no-cull builds' times, what the cull saves."""
+    import torch
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    ms = {}
+    for kind, kern, args, reps in (("rasterize_fwd", rt.run_forward,
+                                    k1_args, 20),
+                                   ("rasterize_bwd", rt.run_backward,
+                                    k2_args, 10)):
+        call = NOCULL[kind][0]
+        got, ref = call(*args), kern(*args)
+        sync()
+        require(torch.equal(got, ref), f"{kind} without the cull differs "
+                f"from the port's ({label}): {int((got != ref).sum())} "
+                "entries")
+        ms[kind] = cuda_ms(lambda: call(*args), reps=reps, warmup=2)
+        log(f"{kind} built with -DGS_NO_CULL is bit-equal ({label}): "
+            f"{ms[kind]:.4f} ms [{SMI}]")
+    return ms
+
+
 def check_kernels(inp, label, timed):
     """Hold K5, K6 and K1 against their plain versions on ``inp``; when
     ``timed``, time both and return each kernel's line, its launch count
@@ -555,6 +821,20 @@ def check_kernels(inp, label, timed):
         log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({by}) "
             f"[{SMI}]")
+
+    def k1_check(got, ref):
+        e_, bad_ = compare_images(got, ref)
+        require(bad_ <= MAX_FLIP_FRACTION, f"the parent's K1 differs from "
+                f"the plain version ({label}): {bad_:.2e} beyond tolerance")
+    k1 = results["tile_forward"]
+    k1["tiles"] = tile_stats(tc)
+    k1["attrs"] = kernel_attributes("rasterize_fwd",
+                                    "gs_tile_forward_attributes")
+    k1.update(time_against_parent("rasterize_fwd", rt.run_forward,
+                                  inp["k1"], 20, k1["ms"], k1_p, k1_check))
+    log(f"K1 at {label}: tiles {k1['tiles']}, attributes {k1['attrs']}, "
+        f"parent {k1.get('parent_ms')} ms, new in turns "
+        f"{k1.get('new_ms_turns')} [{SMI}]")
     log(f"K1 pairs {work}, float32 operations {k1_flops} "
         f"({k1_flops / F32_OPS_PER_S * 1e3:.4f} ms), exponentials "
         f"{work['exp'] / EX2_PER_S * 1e3:.4f} ms on the special-function "
@@ -768,6 +1048,20 @@ def check_backward_kernels(args, label):
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
             + f", bound {bound_s * 1e3:.4f} ms ({by})"
             + (f", runs {runs}" if tag == "K3" else "") + f" [{SMI}]")
+
+    def k2_check(got, ref):
+        for lane in range(16):
+            grad_close(got[:n, lane], ref[:n, lane],
+                       f"the parent's K2 lane {lane} ({label})")
+    k2_line = results["tile_backward"]
+    k2_line["tiles"] = tile_stats(tc)
+    k2_line["attrs"] = kernel_attributes("rasterize_bwd",
+                                         "gs_tile_backward_attributes")
+    k2_line.update(time_against_parent("rasterize_bwd", rt.run_backward, k2,
+                                       10, k2_line["ms"], rows_p, k2_check))
+    log(f"K2 at {label}: tiles {k2_line['tiles']}, attributes "
+        f"{k2_line['attrs']}, parent {k2_line.get('parent_ms')} ms, new in "
+        f"turns {k2_line.get('new_ms_turns')} [{SMI}]")
     log(f"K2 pairs {work}, float32 operations {flops} "
         f"({flops / F32_OPS_PER_S * 1e3:.4f} ms), exponentials "
         f"{work['exp'] / EX2_PER_S * 1e3:.4f} ms, bytes {k2_moved} "
@@ -781,9 +1075,13 @@ def run_steps(ts, cfg, opt, cams, targets, n, label):
     in turn, each at the capacity a counting pass sizes for it; losses
     finite, no overflow.  Returns the state, the wall ms of each step
     (each run to a sync) and each kernel's launches summed over the steps
-    alone (the counting passes between them left out)."""
+    alone (the counting passes between them left out); the card's peak
+    memory is counted from here."""
+    import torch
     from gscream_tpu_torch.train.loop import capacity_tier
     from gscream_tpu_torch.train.step import train_step
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
     counters = launch_counters()
     launches = dict.fromkeys(counters, 0)
     step_ms = []
@@ -821,7 +1119,7 @@ def own_kernel_names():
     from gscream_tpu_torch.ops import cuda_build
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                      r"\s+)?(\w+)")
-    return {name for src in cuda_build.CSRC.glob("*.cu")
+    return {name for src in cuda_build.CSRC.glob("*.cu*")
             for name in pat.findall(src.read_text())}
 
 
@@ -836,7 +1134,8 @@ def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
     log(f"{label} train_step ms per step (each to a sync, counting pass "
         f"outside): {[round(t, 3) for t in step_ms]}; median over the "
         f"{len(step_ms)} steps {median_ms:.3f} ms; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{SMI}]")
+        f"over the steps {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB [{SMI}]")
     cap1 = capacity_tier(int(1.125 * instance_demand(ts.scaffold, cfg,
                                                      cams[1])))
     state = [ts]
@@ -862,7 +1161,7 @@ def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
     for dev_ms, _, name in kernels:
         short = name.removeprefix("void ").removeprefix(
             "(anonymous namespace)::").split("(")[0]
-        if short.split("<")[0] in mine:
+        if short.split("<")[0].split("::")[-1] in mine:
             own[short] = dev_ms
     log(f"  hand-written kernels (device ms per step): "
         + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
@@ -881,6 +1180,7 @@ def train_phase(dev, cfg, scaffold, cams, targets):
     counts, and the counts of every kernel over those steps."""
     import torch
     from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
     from gscream_tpu_torch.train.loop import capacity_tier
     from gscream_tpu_torch.train.state import init_train_state
     from gscream_tpu_torch.train.step import loss_and_grads, phase1_masks
@@ -901,6 +1201,19 @@ def train_phase(dev, cfg, scaffold, cams, targets):
                                  "k6": args["expand_rows"],
                                  "k1": args["run_forward"]}, label, True)
     results.update(check_backward_kernels(args, label))
+    with torch.no_grad():
+        checked, ratio, same = check_agreement(
+            *args["run_forward"], rt.run_forward, rt.run_backward, label)
+        nocull = check_without_cull(args["run_forward"],
+                                    args["run_backward"], label)
+    log(f"{label}: K1 and K2 blend the same pairs: at {checked} (tile, "
+        f"pixel) pairs K1's Σw is bit-equal to K2's weights summed in K1's "
+        f"order at {same}, and within {ratio:.3g} of the float32 rounding "
+        "limit of their float64 sum")
+    results["tile_backward"]["agreement"] = {
+        "pairs": checked, "bit_equal": same, "worst_of_limit": ratio}
+    results["tile_forward"]["nocull_ms"] = nocull["rasterize_fwd"]
+    results["tile_backward"]["nocull_ms"] = nocull["rasterize_bwd"]
     del args
 
     # the full step's gradients, kernel path against plain path
@@ -1154,14 +1467,20 @@ def pallas_phase(dev, cfg, scaffold, cams, targets):
 SMI = ""
 
 
-def build_kernels():
-    """Phase (a): the card, the versions, and the parallel nvcc build."""
+def build_kernels(parent):
+    """Phase (a): the card, the versions, and the parallel nvcc build (the
+    parent's K1 and K2 beside the port's when ``parent`` names a tree)."""
     import torch
     from gscream_tpu_torch.ops import cuda_build
     log(f"card: {SMI}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    procs = variant_build(parent, "parent") if parent else {}
+    nocull = variant_build(os.path.dirname(os.path.abspath(__file__)),
+                           "nocull", ["-DGS_NO_CULL"])
     took = cuda_build.build()
+    variant_load(procs, PARENT, "parent")
+    variant_load(nocull, NOCULL, "nocull")
     log(f"nvcc build of {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s (parallel: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
@@ -1323,13 +1642,19 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches):
 
 def main():
     global SMI
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="GPU smoke test of the "
+                                 "PyTorch/CUDA port")
+    ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
+                    "earlier tree: time its K1 and K2 beside the port's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
                          "False; this check needs a CUDA card")
     import gscream_tpu_torch  # noqa: F401  (fails outside a checkout)
     SMI = smi_line()
-    build_kernels()
+    build_kernels(opts.parent)
     dev = torch.device("cuda")
     render, cfg, scaffold, cams = render_phase(dev)
     targets = training_targets(dev, cfg, cams[:N_TRAIN_VIEWS])

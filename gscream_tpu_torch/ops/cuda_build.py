@@ -3,9 +3,11 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
 headers are compiled, so a build takes seconds.  Libraries go to
-``gscream_tpu_torch/build/`` (git-ignored), named by a hash of the source
-and the flags, and are built at first use; :func:`build` compiles several
-sources in parallel, one ``nvcc`` process each.
+``gscream_tpu_torch/build/`` (git-ignored), named by a hash of the
+source, the ``csrc/`` headers it includes and the flags, each beside the
+build's log under the same name, and are built at first use;
+:func:`build` compiles several sources in parallel, one ``nvcc`` process
+each.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has neither ``nvcc`` nor a card.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,6 +46,7 @@ SOURCES = {
     "segreduce": ("segreduce.cu", []),
 }
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, object] = {}
 
@@ -61,9 +65,27 @@ def _flags(name: str):
     return ARCH + BASE_FLAGS + SOURCES[name][1]
 
 
+def included(src: Path) -> list:
+    """The ``csrc/`` headers ``src`` includes by ``#include "..."``,
+    directly or through another of them, in a fixed order."""
+    seen, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / inc
+            if path.exists() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the headers it
+    includes and the flags: an edit to any of them builds it anew."""
     src = CSRC / SOURCES[name][0]
     h = hashlib.sha256(src.read_bytes())
+    for header in included(src):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -88,7 +110,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
-        (BUILD / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"--- nvcc {SOURCES[name][0]} failed "
                           f"(rc {proc.returncode}):\n{log}")
@@ -100,7 +122,9 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    p = BUILD / f"{name}.log"
+    """The ``nvcc -Xptxas -v`` output of the build of the library
+    :func:`library_path` names: its log is named by the same hash."""
+    p = library_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
 
 

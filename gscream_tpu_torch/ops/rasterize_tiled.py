@@ -165,10 +165,19 @@ def run_forward_plain(inst, tile_start, tile_count,
     return out
 
 
+def _tile_schedule(n_tiles: int, device) -> torch.Tensor:
+    """K1's and K2's scratch: (1 + n_tiles,) int32, the work counter of
+    their persistent grids and the tiles by descending count
+    (``csrc/blend.cuh``); the kernels fill it."""
+    return torch.empty(1 + n_tiles, dtype=torch.int32, device=device)
+
+
 def run_forward(inst, tile_start, tile_count, n_tiles: int) -> torch.Tensor:
     """K1: (capacity, 16) float32 instance records in tile-sorted order
     and the (n_tiles,) int32 tile ranges → (n_tiles, 8, 1024) float32
-    per-tile rows [0, Σw·r, Σw·g, Σw·b, Σw·depth, Σw·unc, final T, 0]."""
+    per-tile rows [0, Σw·r, Σw·g, Σw·b, Σw·depth, Σw·unc, final T, 0].
+    The kernel shares power, α and both tests with K2 (``csrc/blend.cuh``)
+    and takes e^power as one ``ex2.approx`` of power·log2(e)."""
     if inst.device.type == "cpu":
         return run_forward_plain(inst, tile_start, tile_count, n_tiles)
     cb.check(inst, "inst", torch.float32, (None, ILANES))
@@ -176,9 +185,10 @@ def run_forward(inst, tile_start, tile_count, n_tiles: int) -> torch.Tensor:
     cb.check(tile_count, "tile_count", torch.int32, (n_tiles,))
     out = torch.empty((n_tiles, 8, PIX), dtype=torch.float32,
                       device=inst.device)
-    fn = cb.function("rasterize_fwd", "gs_tile_forward", "pppipp")
+    work = _tile_schedule(n_tiles, inst.device)
+    fn = cb.function("rasterize_fwd", "gs_tile_forward", "pppippp")
     rc = fn(cb.ptr(inst), cb.ptr(tile_start), cb.ptr(tile_count), n_tiles,
-            cb.ptr(out), cb.stream_of(inst))
+            cb.ptr(work), cb.ptr(out), cb.stream_of(inst))
     cb.raise_on_error(rc, "tile_forward")
     run_forward.launches += 1
     return out
@@ -273,10 +283,11 @@ def run_backward(inst, pix_tiles, tile_start, tile_count,
     cb.check(tile_start, "tile_start", torch.int32, (n_tiles,))
     cb.check(tile_count, "tile_count", torch.int32, (n_tiles,))
     out = torch.empty_like(inst)
-    fn = cb.function("rasterize_bwd", "gs_tile_backward", "ppppiipp")
+    work = _tile_schedule(n_tiles, inst.device)
+    fn = cb.function("rasterize_bwd", "gs_tile_backward", "ppppiippp")
     rc = fn(cb.ptr(inst), cb.ptr(pix_tiles), cb.ptr(tile_start),
-            cb.ptr(tile_count), n_tiles, inst.shape[0], cb.ptr(out),
-            cb.stream_of(inst))
+            cb.ptr(tile_count), n_tiles, inst.shape[0], cb.ptr(work),
+            cb.ptr(out), cb.stream_of(inst))
     cb.raise_on_error(rc, "tile_backward")
     run_backward.launches += 1
     return out

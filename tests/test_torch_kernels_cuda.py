@@ -6,6 +6,15 @@ where the T < 1e-4 stop moves by one instance (≤ 0.1% of the outputs),
 K2 per output lane within 1e-3·scale + 1e-2·|plain| (scale = max |plain|)
 except ≤ 0.5% of the rows, all within 5e-2·scale (the sums run in other
 orders, and Total − prefix cancels digits), and bit-equal on a rerun.
+K1 and K2 also on a tile of ≥ 4,096 instances, on opacities near 0.99
+and on a sparse scene with empty tiles, where they must blend the same
+pairs: at every pixel, K1's Σw is bit-equal to the weights K2 gives the
+instances there summed in K1's order (``chip_smoke.blend_agreement``).
+On those scenes and on records planted at the edge of the cull (peak α
+just above and below 1/255 over a 16×8 block, the vertex inside the
+block, beside it or far off the tile, wide and narrow gaussians), K1 and
+K2 equal their builds with -DGS_NO_CULL bit for bit: the cull changes
+no output.
 
 These need a CUDA card and ``nvcc``; without one they skip.  This file
 imports neither JAX nor the JAX package, so on a machine with a card it
@@ -27,16 +36,21 @@ def dev():
     return torch.device("cuda")
 
 
-def _splats(dev, seed, n=800, w=160, h=96):
+def _splats(dev, seed, n=800, w=160, h=96, spread=2.0, log_op=(-3, -0.02),
+            log_scale=-2.5):
+    """``n`` seeded gaussians in front of the camera at ``w``×``h``:
+    centres uniform in ±``spread`` (x, y) at depth 0.5-6, opacities
+    log-uniform in 10^``log_op``, scales log-normal about ``log_scale``."""
     from gscream_tpu_torch.cameras import make_camera
     from gscream_tpu_torch.ops.projection import preprocess
     rng = np.random.default_rng(seed)
-    means = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+    means = np.stack([rng.uniform(-spread, spread, n),
+                      rng.uniform(-spread, spread, n),
                       rng.uniform(0.5, 6.0, n)], -1)
-    scales = np.exp(rng.normal(-2.5, 1.0, (n, 3)))
+    scales = np.exp(rng.normal(log_scale, 1.0, (n, 3)))
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    op = 10.0 ** rng.uniform(-3, -0.02, n)
+    op = 10.0 ** rng.uniform(*log_op, n)
 
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -100,13 +114,14 @@ def test_wrappers_check_their_inputs(dev):
         rt.run_forward(torch.zeros((16, 8), device=dev).T, ts, ts, 2)
 
 
-def _backward_inputs(dev, seed):
+def _backward_inputs(dev, seed, capacity=1 << 14, **scene):
     """K2's inputs as the backward builds them: the K1 records, and the
     pixel rows from K1's outputs and seeded cotangents."""
     from gscream_tpu_torch.ops import rasterize_tiled as rt
     from gscream_tpu_torch.ops.binning import bin_instances
-    s, (colors, op, unc), w, h = _splats(dev, seed)
-    b = bin_instances(s, 1 << 14, w, h, 32, 32)
+    s, (colors, op, unc), w, h = _splats(dev, seed, **scene)
+    b = bin_instances(s, capacity, w, h, 32, 32)
+    assert int(b.num_instances) <= capacity
     inst = rt.pack_instance_data(s.mean2d, s.conic, op, colors, s.depth,
                                  unc, b, -(-w // 32))
     n_tiles = b.tile_start.shape[0]
@@ -121,6 +136,17 @@ def _backward_inputs(dev, seed):
     return (inst, pix, b.tile_start, b.tile_count, n_tiles), b
 
 
+def _rows_close(got, ref):
+    """K2's tolerance per output lane (module docstring)."""
+    for lane in range(16):
+        a, r = got[:, lane].double(), ref[:, lane].double()
+        scale = max(float(r.abs().max()), 1e-30)
+        err = (a - r).abs()
+        assert float((err > 1e-3 * scale + 1e-2 * r.abs()).double().mean()
+                     ) <= 5e-3, lane
+        assert float(err.max()) <= 5e-2 * scale, lane
+
+
 @pytest.mark.parametrize("seed", [0, 2])
 def test_tile_backward_close(dev, seed):
     from gscream_tpu_torch.ops import rasterize_tiled as rt
@@ -132,13 +158,183 @@ def test_tile_backward_close(dev, seed):
     n = int(b.num_instances)
     assert not got[n:].any()
     assert float(ref[:n, 6].abs().max()) > 0
-    for lane in range(16):
-        a, r = got[:n, lane].double(), ref[:n, lane].double()
-        scale = max(float(r.abs().max()), 1e-30)
-        err = (a - r).abs()
-        assert float((err > 1e-3 * scale + 1e-2 * r.abs()).double().mean()
-                     ) <= 5e-3, lane
-        assert float(err.max()) <= 5e-2 * scale, lane
+    _rows_close(got[:n], ref[:n])
+
+
+# scenes for the schedule, the batching and the early stops of K1 and K2:
+# one tile under 5,000 faint gaussians (>= 4,096 instances: many batches,
+# the heaviest tile first), opacities near 0.99 (pixels, warps and whole
+# tiles stop after a few instances) and 40 small gaussians at 320×192
+# (empty tiles, most of the capacity past the last tile)
+BLEND_CASES = {
+    "heavy_tile": dict(n=5000, spread=0.04, log_op=(-2.5, -1.5),
+                       log_scale=-3.5, capacity=1 << 15),
+    "opaque": dict(n=800, log_op=(-0.0044, -0.0044), log_scale=-2.0),
+    "sparse": dict(n=40, w=320, h=192, log_scale=-4.0, capacity=1 << 13),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLEND_CASES))
+def test_tile_kernels_schedule_and_stops(dev, nocull, case):
+    """K1 and K2 against their plain versions, a bit-equal rerun of each,
+    zero rows past every tile's last blended instance and past the last
+    tile, the two kernels blending the same pairs, and both equal to
+    their builds without the cull."""
+    from chip_smoke import check_agreement
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    kw = dict(BLEND_CASES[case])
+    args, b = _backward_inputs(dev, 7, **kw)
+    inst, pix, ts, tc, n_tiles = args
+    counts = tc.tolist()
+    n = int(b.num_instances)
+    if case == "heavy_tile":
+        assert max(counts) >= 4096
+    if case == "sparse":
+        assert 0 in counts and n < inst.shape[0] // 4
+    fwd_args = (inst, ts, tc, n_tiles)
+    got = rt.run_forward(*fwd_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rt.run_forward(*fwd_args))
+    ref = rt.run_forward_plain(*fwd_args)
+    assert torch.isfinite(got).all()
+    bad = (got - ref).abs() > 1e-4 * ref.abs().clamp_min(1.0)
+    assert float(bad.float().mean()) <= 1e-3
+    if case == "opaque":
+        assert float((ref[:, 6] < 1e-3).float().mean()) > 0.1
+
+    rows = rt.run_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rt.run_backward(*args))
+    rows_p = rt.run_backward_plain(*args)
+    assert not rows[n:].any()
+    _rows_close(rows[:n], rows_p[:n])
+    # past each tile's last instance the plain version blends, allowing
+    # one instance for a stop that moves, the kernel's rows are zero
+    live = rows_p.abs().sum(1) > 0
+    past = 0
+    for s, c in zip(ts.tolist(), counts):
+        hit = torch.nonzero(live[s:s + c])
+        last = int(hit.max()) if hit.numel() else -1
+        tail = rows[s + last + 2:s + c]
+        assert not tail.any()
+        past += tail.shape[0]
+    if case in ("heavy_tile", "opaque"):
+        assert past > 0
+    check_agreement(*fwd_args, rt.run_forward, rt.run_backward, case)
+    _equal_without_cull(nocull, args)
+
+
+@pytest.fixture(scope="module")
+def nocull():
+    """K1 and K2 built with -DGS_NO_CULL: every (instance, block) pair
+    evaluated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import os
+    from chip_smoke import NOCULL, variant_build, variant_load
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    variant_load(variant_build(root, "nocull", ["-DGS_NO_CULL"]), NOCULL,
+                 "nocull")
+    return {kind: call for kind, (call, _) in NOCULL.items()}
+
+
+# the peak α of a planted record over its block is e^δ / 255
+PLANT_DELTAS = (2e-4, 1e-3, 1e-2, -2e-4, -1e-2)
+
+
+def _planted(dev, seed=11, n=320):
+    """One 32×32 tile of ``n`` records, each with its power's largest
+    value over the tile's pixels at ln(1/(255·op)) + δ, so that it passes
+    α ≥ 1/255 in one 16×8 block at most: the vertex inside one of the 8
+    blocks, within 2 pixels of its side, inside the tile or up to 64
+    pixels off it; curvatures 1e-3-30
+    (wide to narrow), anisotropic and tilted.  Returns K2's arguments
+    (records, seeded pixel rows, tile ranges), δ and the scale of the
+    power's terms per record."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    rng = np.random.default_rng(seed)
+    rec = np.zeros((n, 16))
+    delta = np.array([PLANT_DELTAS[k % len(PLANT_DELTAS)]
+                      for k in range(n)])
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float64)
+    scale = np.zeros(n)
+    for k in range(n):
+        b = k % 8
+        xa, ya = 16.0 * (b & 1), 8.0 * (b >> 1)
+        family = (k // 8) % 4
+        if family == 0:
+            cx, cy = xa + rng.uniform(0, 15), ya + rng.uniform(0, 7)
+        elif family == 1:
+            cx = rng.choice([xa - rng.uniform(0, 2), xa + 15 +
+                             rng.uniform(0, 2)])
+            cy = ya + rng.uniform(-2, 9)
+        elif family == 2:
+            cx, cy = rng.uniform(-8, 40, 2)
+        else:
+            cx, cy = rng.uniform(-64, 96, 2)
+        a = 10.0 ** rng.uniform(-3, 1.5)
+        r = 10.0 ** rng.uniform(-0.5, 0.5)
+        rho = rng.uniform(-0.9, 0.9)
+        k3, k5, k4 = -a, -a * r, -2.0 * rho * a * np.sqrt(r)
+        dx, dy = xx - cx, yy - cy
+        top = float((k3 * dx * dx + k4 * dx * dy + k5 * dy * dy).max())
+        op = 10.0 ** rng.uniform(-1.7, -0.01)
+        peak = -np.log(255.0 * op) + delta[k] - top
+        k1 = -(2 * k3 * cx + k4 * cy)
+        k2 = -(k4 * cx + 2 * k5 * cy)
+        k0 = peak + k3 * cx * cx + k4 * cx * cy + k5 * cy * cy
+        rec[k, :14] = [op, *rng.uniform(0, 1, 3), k + 1.0,
+                       rng.uniform(0, 1), k0, k1, k2, k3, k4, k5,
+                       -np.round(cx), -np.round(cy)]
+        scale[k] = (abs(k0) + 32 * (abs(k1) + abs(k2)) +
+                    1024 * (abs(k3) + abs(k4) + abs(k5)))
+    inst = torch.as_tensor(rec.astype(np.float32), device=dev)
+    ts = torch.zeros(1, dtype=torch.int32, device=dev)
+    tc = torch.full((1,), n, dtype=torch.int32, device=dev)
+    img = rt.tiles_to_image(rt.run_forward_plain(inst, ts, tc, 1), 32, 32)
+    g = torch.as_tensor(rng.normal(size=(6, 32, 32)).astype(np.float32),
+                        device=dev)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    pix = rt.pixel_rows(img[1:4], img[4], img[5], img[6], bg, g[0:3], g[3],
+                        g[4], g[5], 32, 32)
+    return (inst, pix, ts, tc, 1), delta, scale
+
+
+def _equal_without_cull(nocull, args):
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    inst, pix, ts, tc, n_tiles = args
+    for kind, kern, a in (("rasterize_fwd", rt.run_forward,
+                           (inst, ts, tc, n_tiles)),
+                          ("rasterize_bwd", rt.run_backward, args)):
+        got, ref = kern(*a), nocull[kind](*a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (kind, int((got != ref).sum()))
+
+
+def test_cull_keeps_pairs_at_the_threshold(dev, nocull):
+    """Planted records whose peak α over their block sits just above or
+    just below 1/255: K1 and K2 equal their no-cull builds bit for bit,
+    blend the same pairs, and where the power's rounding (~1e-7 of its
+    terms' scale) is far below |δ| give a record a gradient row exactly
+    where the plain version does: nonzero above the threshold, zero
+    below."""
+    from chip_smoke import check_agreement
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    args, delta, scale = _planted(dev)
+    _equal_without_cull(nocull, args)
+    inst, pix, ts, tc, n_tiles = args
+    check_agreement(inst, ts, tc, n_tiles, rt.run_forward, rt.run_backward,
+                    "planted")
+    rows = rt.run_backward(*args)
+    rows_p = rt.run_backward_plain(*args)
+    clear = torch.as_tensor(scale * 1e-6 < np.abs(delta) / 10, device=dev)
+    above = torch.as_tensor(delta > 0, device=dev)
+    live, live_p = rows.abs().sum(1) > 0, rows_p.abs().sum(1) > 0
+    assert int((clear & above).sum()) >= 40
+    assert int((clear & ~above).sum()) >= 20
+    assert bool(live[clear & above].all() and live_p[clear & above].all())
+    assert not bool(live[clear & ~above].any() or
+                    live_p[clear & ~above].any())
 
 
 def _long_runs(dev, seed=5):
