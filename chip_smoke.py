@@ -9,9 +9,17 @@ catches its own failure):
     and CUDA versions, and the parallel ``nvcc`` build of every kernel
     under ``gscream_tpu_torch/csrc/`` (with ``ptxas`` register counts);
 (b) each kernel against its plain PyTorch version on the card — K5 and
-    K6 bit-equal, K1 within tolerance — at a small seeded scene (fitting
-    and overflowing capacities) and at the full-width scene's shapes,
-    with median times from CUDA events;
+    K6 bit-equal, also on a second call and after CUDA-graph replays,
+    and K5's counting launch bit-equal; K1 within tolerance — at a small
+    seeded scene (fitting and overflowing capacities) and at the
+    full-width scene's view 0 (the render's capacity tier, and one
+    capacity that overflows the row table and one that overflows only
+    the instance slots), with times from CUDA events around host-paced
+    calls (``ms``), from CUDA-graph replays (``graph_ms``, the device
+    time without the host's) and from the profiler, and the emission
+    front (K5 and K6, against the parent's torch ops around its K5 and K6
+    with ``--parent``) timed the same ways with its launches per
+    ``bin_instances`` call;
 (c) the render path through its entry points at full width: the
     Scaffold-GS model of the repo's benchmark (feat_dim 32, 10 offsets,
     30,000 anchors ~ N(0, 0.6) from numpy seed 0, random decoders from a
@@ -27,7 +35,8 @@ catches its own failure):
     ``gscream_tpu/data/synthetic.py`` makes it); one step's gradients at
     view 0 with the arguments of every kernel call recorded, all six
     kernels held against their plain versions and timed on those
-    arguments (K2 within tolerance and bit-equal to the path's own
+    arguments (K5 and K6 as in (b), with the front; K2 within tolerance
+    and bit-equal to the path's own
     output, K4 and K3 bit-equal, K3 also on a rerun and to K7 on the
     transposed columns; K3's line carries the run statistics that set its
     time), K1 and K2 blending the same pairs (at every pixel of every
@@ -56,12 +65,15 @@ catches its own failure):
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), the others from phase (d), with the
 render path's and each training route's launch counts and the render
-path's line beside it; K1's and K2's lines also carry the tile-count
+path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
+profiler's device time and launches per call; K1's and K2's lines also
+carry the tile-count
 distribution, the registers, shared and local memory and CTAs per SM
 that the card reports for the loaded kernels, the no-cull builds' times
 and, with ``--parent DIR``, the times of DIR's K1 and K2 measured in
 turns with the port's: ``python3 chip_smoke.py --parent DIR``, DIR a
-checkout of an earlier tree), then the card's
+checkout of an earlier tree, whose K5 and K6 and the torch ops around
+them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
@@ -176,6 +188,65 @@ def cuda_ms(fn, reps: int, rounds: int = 5, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+GRAPH_CALLS = 10        # calls of the wrapper captured in one CUDA graph
+
+
+def graph_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Device time of one ``fn()`` without its host cost: GRAPH_CALLS
+    calls captured in one CUDA graph (after a warm call on a side stream,
+    as capture wants), ``reps`` replays back to back between CUDA events,
+    divided by the calls; the median of ``rounds``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / (reps * GRAPH_CALLS))
+    del graph
+    return float(np.median(times))
+
+
+def device_ms(fn, n=20):
+    """:func:`profile_calls`' view of one ``fn()`` over ``n`` calls: the
+    device time of every kernel and memset it launched, its launches, and
+    {kernel name: device ms}, per call."""
+    kernels, _, busy, _ = profile_calls(fn, (), n)
+    names = {}
+    for ms, _, key in kernels:
+        name = key.removeprefix("void ").removeprefix(
+            "(anonymous namespace)::").split("(")[0]
+        names[name] = names.get(name, 0.0) + ms
+    return busy, sum(k[1] for k in kernels), names
+
+
+def device_times(rec, fn):
+    """Add ``fn``'s (one wrapper call's) device times to its kernel line
+    ``rec``: ``graph_ms`` (:func:`graph_ms`) and the profiler's device ms,
+    launches and kernel names per call (:func:`device_ms`); returns them
+    as a phrase for the log."""
+    rec["graph_ms"] = graph_ms(fn)
+    rec["device_ms"], rec["launches_per_call"], rec["device_kernels"] = \
+        device_ms(fn)
+    return (f", graph {rec['graph_ms']:.4f} ms, profiler device "
+            f"{rec['device_ms']:.4f} ms in {rec['launches_per_call']} "
+            f"launches {rec['device_kernels']}")
+
+
 def wall_ms_per_call(fn, n):
     """Host wall time of one ``fn()``, each call run to a device sync."""
     import torch
@@ -192,7 +263,9 @@ def profile_calls(fn, prefixes, n=3):
     per call, launches per call, name), device ms per call of each
     ``record_function`` range whose name starts with one of
     ``prefixes``, device busy ms and wall ms per call under the
-    profiler)."""
+    profiler).  A kernel's device ms per call is its mean time times its
+    launches per call, so that an event the profiler drops does not count
+    as a shorter call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,9 +285,10 @@ def profile_calls(fn, prefixes, n=3):
             # its GPU-side twin spans first to last kernel, gaps included
             if e.device_type == DeviceType.CPU:
                 layers[e.key] = e.device_time_total / n / 1e3
-        elif e.device_type == DeviceType.CUDA:
-            kernels.append((e.self_device_time_total / n / 1e3,
-                            e.count // n, e.key))
+        elif e.device_type == DeviceType.CUDA and e.count:
+            per_call = round(e.count / n)
+            kernels.append((e.self_device_time_total / e.count / 1e3
+                            * per_call, per_call, e.key))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     return kernels, layers, busy_ms, wall_ms
@@ -333,12 +407,11 @@ def small_splats(device):
 def instance_demand(scaffold, cfg, cam):
     """The capacity this view's emission needs (``overflow_demand``),
     from one counting pass (``bench.py::_count_instances``)."""
-    from gscream_tpu_torch.ops.binning import (ROW_RATIO, _row_offsets,
-                                               emission_counts)
+    from gscream_tpu_torch.ops.binning import ROW_RATIO, emission_counts
     import torch
     with torch.no_grad():
         _, sp = splats_of(scaffold, cfg, cam)
-        ni, nr = emission_counts(sp, 32, 32, int(_row_offsets(sp)[-1]))
+        ni, nr = emission_counts(sp, 32, 32)
     return max(int(ni), ROW_RATIO * int(nr))
 
 
@@ -363,17 +436,13 @@ def kernel_inputs(splats, colors, opacity, unc, capacity, w, h):
     gx = -(-w // 32)
     n_tiles = bn.num_tiles(w, h, 32, 32)
     row_cap = bn.row_table_size(capacity)
-    row_offs = bn._row_offsets(splats)
-    k5_args = (row_offs, splats.rect_min.contiguous(),
-               splats.rect_max.contiguous(), splats.mean2d.contiguous(),
-               splats.conic.contiguous(), splats.t_iso.contiguous(),
-               splats.depth.contiguous(), row_cap, 32, 32, gx)
+    k5_args = bn._splat_fields(splats) + (row_cap, capacity, 32, 32, gx)
     binning = bn.bin_instances(splats, capacity, w, h, 32, 32)
-    rows = bn.expand_gauss_rows(*k5_args)
-    ioffs = (rows[3].cumsum(0) - rows[3]).int()
+    table = bn.expand_gauss_rows(*k5_args)
     inst = pack_instance_data(splats.mean2d, splats.conic, opacity, colors,
                               splats.depth, unc, binning, gx)
-    return {"k5": k5_args, "k6": (rows, ioffs, capacity, n_tiles),
+    return {"k5": k5_args,
+            "k6": (table.rows, table.ioffs, table.counts, capacity, n_tiles),
             "k1": (inst, binning.tile_start, binning.tile_count, n_tiles),
             "binning": binning}
 
@@ -421,22 +490,28 @@ def k1_bound(work, n_tiles):
     return ops_s, moved / HBM_BYTES_PER_S, flops, moved
 
 
-def k5_bytes(k5_args, row_cap):
-    """Bytes K5 must move: the row prefix in full, the fields it uses of
-    the gaussians that own a row below ``row_cap`` (rect x/y min, rect x
-    max, mean2d, conic, t_iso, depth: 40 bytes), and the (4, row_cap)
-    table it writes."""
-    row_offs = k5_args[0]
-    emit = ((row_offs[1:] > row_offs[:-1])
-            & (row_offs[:-1] < row_cap)).sum()
-    return nbytes(row_offs) + 40 * int(emit) + 4 * 4 * row_cap
+def k5_bytes(k5_args):
+    """Bytes K5 must move: the radius and rect (20 bytes) of every
+    gaussian, mean2d, conic, t_iso and depth (28 bytes) of each that owns
+    a row below ``row_cap``, the (4, row_cap) table and ``ioffs`` it
+    writes (20 bytes a slot), the (N+1) offsets, the two counts, and its
+    look-back scratch (8 bytes per chunk and chain, and the ticket)."""
+    import torch
+    from gscream_tpu_torch.ops import emission as em
+    radius, rmin, rmax = k5_args[:3]
+    n, row_cap = radius.shape[0], k5_args[7]
+    h = em.rect_heights(radius, rmin, rmax).long()
+    first = torch.cumsum(h, 0) - h
+    emit = int(((h > 0) & (first < row_cap)).sum())
+    scratch = 8 * (2 * -(-n // em.K5_CHUNK) + 1)
+    return 20 * n + 28 * emit + 20 * row_cap + 4 * (n + 1) + 8 + scratch
 
 
 def k6_bytes(rows, capacity):
     """Bytes K6 must move: each live row that emits (w_row > 0) read once
-    as (tile_base, gid, depth_bits, its slot offset), and the (3, capacity)
-    slots it writes."""
-    return 16 * int((rows[3] > 0).sum()) + 3 * 4 * capacity
+    as (tile_base, gid, depth_bits, its slot offset), the two counts, and
+    the (3, capacity) slots it writes."""
+    return 16 * int((rows[3] > 0).sum()) + 8 + 3 * 4 * capacity
 
 
 def nbytes(*ts):
@@ -752,10 +827,76 @@ def check_without_cull(k1_args, k2_args, label):
     return ms
 
 
+def same(a, b):
+    """Bit-equal tensors, or tuples of them (K5's ``RowTable``)."""
+    import torch
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def check_expand(k5_args, n_tiles, label):
+    """K5 and K6 (K6 on K5's table) bit-equal to their plain versions, to
+    themselves on a second call and after CUDA-graph replays of one
+    captured call of each (the capture holds the zeroing of K5's
+    look-back scratch); K5's counting launch bit-equal to its plain
+    version and, where the table holds every row, to K5's counts.
+    Returns K5's table and K6's slots."""
+    import torch
+    from gscream_tpu_torch.ops import emission as em
+    row_cap, capacity, tile_w, tile_h = k5_args[7:11]
+
+    def both():
+        t = em.expand_gauss_rows(*k5_args)
+        return t, em.expand_rows(t.rows, t.ioffs, t.counts, capacity,
+                                 n_tiles)
+    table, inst = both()
+    sync()              # a fault during the launch surfaces here
+    ref = em.expand_gauss_rows_plain(*k5_args)
+    for f in table._fields:
+        a, b = getattr(table, f), getattr(ref, f)
+        require(torch.equal(a, b), f"K5 {f} differs from its plain version "
+                f"({label}): {int((a != b).sum())} entries")
+    inst_p = em.expand_rows_plain(table.rows, table.ioffs, table.counts,
+                                  capacity, n_tiles)
+    require(torch.equal(inst, inst_p), f"K6 differs from its plain version "
+            f"({label}): {int((inst != inst_p).sum())} entries")
+    again = both()
+    sync()
+    require(same(again[0], table) and torch.equal(again[1], inst),
+            f"K5 or K6 rerun is not bit-equal ({label})")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = both()
+    for i in range(2):
+        graph.replay()
+        sync()
+        require(same(replayed[0], table) and torch.equal(replayed[1], inst),
+                f"K5 or K6 after CUDA-graph replay {i + 1} is not bit-equal "
+                f"({label})")
+    del graph, replayed
+    counts = em.count_emission(*k5_args[:7], tile_w, tile_h)
+    sync()
+    require(torch.equal(counts, em.count_emission_plain(
+        *k5_args[:7], tile_w, tile_h)), f"K5's counting launch differs from "
+        f"its plain version ({label})")
+    n_rows, total = table.counts.tolist()
+    require(row_cap < n_rows or torch.equal(counts, table.counts),
+            f"K5's counting launch {counts.tolist()} differs from its table's "
+            f"counts {[n_rows, total]} ({label})")
+    log(f"{label}: K5 bit-equal ({n_rows} rows for a table of {row_cap}, "
+        f"{total} instances for {capacity} slots), K6 bit-equal "
+        f"{tuple(inst.shape)}, both rerun and graph replay bit-equal; K5 "
+        f"counting {counts.tolist()} bit-equal")
+    return table, inst
+
+
 def check_kernels(inp, label, timed):
-    """Hold K5, K6 and K1 against their plain versions on ``inp``; when
-    ``timed``, time both and return each kernel's line, its launch count
-    left to the caller."""
+    """Hold K5, K6 (:func:`check_expand`) and K1 against their plain
+    versions on ``inp``; when ``timed``, time them and return each
+    kernel's line, its launch count left to the caller, with the emission
+    front against the parent's (:func:`compare_fronts`) on K5's line."""
     import torch
     from gscream_tpu_torch.ops import emission as em
     from gscream_tpu_torch.ops import rasterize_tiled as rt
@@ -765,16 +906,11 @@ def check_kernels(inp, label, timed):
         sync()          # a fault during the launch surfaces here
         return out
 
-    k5_k, k5_p = run(em.expand_gauss_rows, inp["k5"]), run(
-        em.expand_gauss_rows_plain, inp["k5"])
-    if not torch.equal(k5_k, k5_p):
-        raise AssertionError(f"K5 differs from its plain version ({label}): "
-                             f"{int((k5_k != k5_p).sum())} entries")
-    k6_k, k6_p = run(em.expand_rows, inp["k6"]), run(em.expand_rows_plain,
-                                                     inp["k6"])
-    if not torch.equal(k6_k, k6_p):
-        raise AssertionError(f"K6 differs from its plain version ({label}): "
-                             f"{int((k6_k != k6_p).sum())} entries")
+    rows, ioffs, counts, capacity, n_tiles = inp["k6"]
+    table, _ = check_expand(inp["k5"], n_tiles, label)
+    require(same((rows, ioffs, counts),
+                 (table.rows, table.ioffs, table.counts)),
+            f"the path's K5 table differs from K5 called again ({label})")
     k1_k, k1_p = run(rt.run_forward, inp["k1"]), run(rt.run_forward_plain,
                                                      inp["k1"])
     err, bad = compare_images(k1_k, k1_p)
@@ -782,14 +918,11 @@ def check_kernels(inp, label, timed):
         raise AssertionError(f"K1 differs from its plain version ({label}): "
                              f"max abs {err}, {bad:.2e} of outputs beyond "
                              "tolerance")
-    log(f"{label}: K5 bit-equal {tuple(k5_k.shape)}, K6 bit-equal "
-        f"{tuple(k6_k.shape)}, K1 max abs err {err:.3e}, beyond tolerance "
-        f"{bad:.2e}")
+    log(f"{label}: K1 max abs err {err:.3e}, beyond tolerance {bad:.2e}")
     if not timed:
         return {}
-    rows, _, capacity, _ = inp["k6"]
     inst, ts, tc, n_tiles = inp["k1"]
-    k5_moved = k5_bytes(inp["k5"], rows.shape[1])
+    k5_moved = k5_bytes(inp["k5"])
     k6_moved = k6_bytes(rows, capacity)
     work = k1_work(inst, ts, tc)
     k1_ops_s, k1_bytes_s, k1_flops, k1_moved = k1_bound(work, n_tiles)
@@ -816,11 +949,17 @@ def check_kernels(inp, label, timed):
             "source": f"gscream_tpu_torch/csrc/{src}", "replaces": repl,
             "shapes": label, "max_abs_err": e, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3, "bound_by": by,
-            "library_ms": None, "check": "bit-equal" if tag != "K1" else
+            "library_ms": None, "check": "bit-equal, rerun and CUDA-graph "
+            "replay bit-equal" if tag != "K1" else
             f"max abs err {e:.3e}, beyond tolerance {bad:.2e}"}
-        log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({by}) "
-            f"[{SMI}]")
+        extra = ""
+        if tag != "K1":
+            extra = device_times(results[name], lambda: kern(*args))
+        log(f"{tag} {name} at {label}: kernel {ms:.4f} ms (host-paced), "
+            f"plain {plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({by})"
+            f"{extra} [{SMI}]")
+    results["expand_gauss_rows"]["front"] = compare_fronts(
+        inp["k5"], label)
 
     def k1_check(got, ref):
         e_, bad_ = compare_images(got, ref)
@@ -841,6 +980,221 @@ def check_kernels(inp, label, timed):
         f"pipe, bytes {k1_moved} ({k1_bytes_s * 1e3:.4f} ms); K5 bytes "
         f"{k5_moved}, K6 bytes {k6_moved}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# the emission front (rect heights to instance slots and offsets): this
+# tree's K5 and K6 against the parent's (``--parent DIR``) with the torch
+# ops the parent ran around them
+
+PARENT_EMISSION = {}
+
+
+def parent_emission_build(root):
+    """Start ``nvcc`` on ``root``'s ``emission.cu`` with the port's flags
+    for it; :func:`parent_emission_load` finishes."""
+    from gscream_tpu_torch.ops import cuda_build as cb
+    src = os.path.join(root, "gscream_tpu_torch", "csrc", "emission.cu")
+    so = cb.BUILD / "libparent_emission.so"
+    return src, so, nvcc_start(src, so, cb.SOURCES["emission"][1])
+
+
+def parent_emission_load(src, so, proc):
+    """The parent's K5 and K6 C entries, which take the row prefix
+    (``row_offs``) and a (4, row_cap) table, and K6 the w_row prefix."""
+    import ctypes
+    import re
+    out, _ = proc.communicate()
+    require(proc.returncode == 0, f"nvcc of {src} failed:\n{out}")
+    text = open(src).read()
+    require(re.search(r"gs_expand_gauss_rows\(\s*const int\* row_offs",
+                      text) is not None, f"{src}: K5 is not the first design "
+            "(it does not take row_offs); --parent needs the tree before K5 "
+            "took the splats")
+    lib = ctypes.CDLL(str(so))
+    for key, symbol, sig in (("k5", "gs_expand_gauss_rows",
+                              "pppppppiiiiipp"),
+                             ("k6", "gs_expand_rows", "ppiiipp")):
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int if c == "i" else ctypes.c_void_p
+                       for c in sig]
+        fn.restype = ctypes.c_int
+        PARENT_EMISSION[key] = fn
+    PARENT_EMISSION["ptxas"] = {k: ptxas_stats(out, k) for k in (
+        "expand_gauss_rows_kernel", "expand_rows_kernel")}
+    log(f"parent emission built from {src}: ptxas "
+        f"{PARENT_EMISSION['ptxas']}")
+
+
+def parent_k5(fields, row_offs, row_cap):
+    """The parent's K5: its row prefix and the splat fields → the (4,
+    row_cap) row table."""
+    import torch
+    from gscream_tpu_torch.ops import cuda_build as cb
+    radius, rmin, rmax, mean2d, conic, t_iso, depth = fields
+    rows = torch.empty((4, row_cap), dtype=torch.int32, device=depth.device)
+    cb.raise_on_error(PARENT_EMISSION["k5"](
+        cb.ptr(row_offs), cb.ptr(rmin), cb.ptr(rmax), cb.ptr(mean2d),
+        cb.ptr(conic), cb.ptr(t_iso), cb.ptr(depth), depth.shape[0], row_cap,
+        32, 32, -(-WIDTH // 32), cb.ptr(rows), cb.stream_of(depth)),
+        "the parent's K5")
+    return rows
+
+
+def parent_k6(rows, ioffs, capacity):
+    """The parent's K6: its row table and w_row prefix → the (3, capacity)
+    instance slots."""
+    import torch
+    from gscream_tpu_torch.ops import cuda_build as cb
+    inst = torch.empty((3, capacity), dtype=torch.int32, device=rows.device)
+    cb.raise_on_error(PARENT_EMISSION["k6"](
+        cb.ptr(ioffs), cb.ptr(rows), rows.shape[1], capacity,
+        -(-WIDTH // 32) * -(-HEIGHT // 32), cb.ptr(inst),
+        cb.stream_of(rows)), "the parent's K6")
+    return inst
+
+
+def parent_rows(fields, row_cap):
+    """The parent's row prefix and K5: the rect heights and their prefix
+    (~9 torch launches), then its K5."""
+    import torch
+    radius, rmin, rmax = fields[:3]
+    rect_h = torch.where((radius > 0) & (rmax[:, 0] > rmin[:, 0]),
+                         rmax[:, 1] - rmin[:, 1], torch.zeros_like(rmin[:, 1]))
+    row_offs = torch.zeros(radius.shape[0] + 1, dtype=torch.int32,
+                           device=radius.device)
+    row_offs[1:] = torch.cumsum(rect_h, 0, dtype=torch.int32)
+    return row_offs, parent_k5(fields, row_offs, row_cap)
+
+
+def parent_front(fields, capacity):
+    """The parent's emission front as its ``bin_instances`` ran it: the
+    row prefix and K5 (:func:`parent_rows`), the w_row prefix and total
+    (~5 launches), its K6, and the offsets block (~7).  Returns (instance
+    slots, offsets, total, row demand)."""
+    import torch
+    row_cap = capacity // 2
+    row_offs, rows = parent_rows(fields, row_cap)
+    w_row = rows[3]
+    ioffs = (torch.cumsum(w_row, 0) - w_row).to(torch.int32)
+    total = (ioffs[-1] + w_row[-1]).to(torch.int32)
+    inst = parent_k6(rows, ioffs, capacity)
+    ioffs_ext = torch.cat([ioffs, total.reshape(1)])
+    goffs = ioffs_ext[torch.clamp_max(row_offs[:-1], row_cap).long()]
+    offsets = torch.clamp_max(torch.cat([goffs, total.reshape(1)]), capacity)
+    return inst, offsets, total, row_offs[-1]
+
+
+def parent_count(fields):
+    """The parent's counting pass (``instance_demand`` and
+    ``emission_counts`` before K5 took the splats): the row demand read
+    back to the host, then the row prefix and K5 at a table of that size
+    and the w_row total.  Returns (instances, row demand)."""
+    import torch
+    radius, rmin, rmax = fields[:3]
+    rect_h = torch.where((radius > 0) & (rmax[:, 0] > rmin[:, 0]),
+                         rmax[:, 1] - rmin[:, 1], torch.zeros_like(rmin[:, 1]))
+    row_offs = torch.zeros(radius.shape[0] + 1, dtype=torch.int32,
+                           device=radius.device)
+    row_offs[1:] = torch.cumsum(rect_h, 0, dtype=torch.int32)
+    row_offs, rows = parent_rows(fields, max(int(row_offs[-1]), 1))
+    w_row = rows[3]
+    total = ((torch.cumsum(w_row, 0) - w_row)[-1] + w_row[-1]).to(torch.int32)
+    return total, row_offs[-1]
+
+
+def new_front(fields, capacity):
+    """This tree's emission front: K5 and K6."""
+    from gscream_tpu_torch.ops import emission as em
+    gx = -(-WIDTH // 32)
+    t = em.expand_gauss_rows(*fields, capacity // 2, capacity, 32, 32, gx)
+    inst = em.expand_rows(t.rows, t.ioffs, t.counts, capacity,
+                          gx * -(-HEIGHT // 32))
+    return inst, t.offsets, t.counts[1], t.counts[0]
+
+
+def binning_of(front, fields, capacity):
+    """``bin_instances`` on top of ``front``: its sort and gathers."""
+    import torch
+    from gscream_tpu_torch.ops.binning import sort_instances
+    inst, offsets, total, n_rows = front(fields, capacity)
+    _, order, tile_start, tile_count = sort_instances(
+        inst[0], inst[2], -(-WIDTH // 32) * -(-HEIGHT // 32))
+    return inst[1][order], order.to(torch.int32), tile_start, tile_count
+
+
+def compare_fronts(k5_args, label):
+    """The emission front and the whole ``bin_instances`` call at K5's
+    arguments ``k5_args`` (full width): device time per call from CUDA
+    graphs (in turns with the parent's: new, parent, parent, new), host
+    wall time per call to a sync, and the profiler's device time and
+    launches per call; with ``--parent``, the parent's front held
+    bit-equal to this tree's first."""
+    import torch
+    from gscream_tpu_torch.ops import emission as em
+    fields, capacity = k5_args[:7], k5_args[8]
+    fronts = {"new": new_front}
+    if PARENT_EMISSION:
+        fronts["parent"] = parent_front
+        got, ref = new_front(fields, capacity), parent_front(fields, capacity)
+        sync()
+        for what, a, b in zip(("slots", "offsets", "total", "row demand"),
+                              got, ref):
+            require(torch.equal(a, b), f"the parent's emission front differs "
+                    f"from this tree's in its {what} ({label})")
+    out = {}
+    order = ["new", "parent", "parent", "new"] if PARENT_EMISSION else \
+        ["new", "new"]
+    for tag in order:
+        rec = out.setdefault(tag, {"graph_ms": []})
+        rec["graph_ms"].append(graph_ms(lambda: fronts[tag](fields,
+                                                            capacity)))
+    counts = {"new": lambda: em.count_emission(*fields, 32, 32)}
+    if PARENT_EMISSION:
+        counts["parent"] = lambda: parent_count(fields)
+        require([int(x) for x in counts["parent"]()]
+                == counts["new"]().tolist()[::-1], f"the parent's counting "
+                f"pass differs from this tree's ({label})")
+        # each kernel alone on its own inputs, in turns
+        row_offs, rows = parent_rows(fields, capacity // 2)
+        ioffs = (torch.cumsum(rows[3], 0) - rows[3]).to(torch.int32)
+        table = em.expand_gauss_rows(*k5_args)
+        alone = {"K5": {"new": lambda: em.expand_gauss_rows(*k5_args),
+                        "parent": lambda: parent_k5(fields, row_offs,
+                                                    capacity // 2)},
+                 "K6": {"new": lambda: em.expand_rows(
+                            table.rows, table.ioffs, table.counts, capacity,
+                            k5_args[11] * -(-HEIGHT // 32)),
+                        "parent": lambda: parent_k6(rows, ioffs, capacity)}}
+        out["kernels_alone_graph_ms"] = {}
+        for kern, calls in alone.items():
+            turns = out["kernels_alone_graph_ms"][kern] = {"new": [],
+                                                           "parent": []}
+            for tag in ("new", "parent", "parent", "new"):
+                turns[tag].append(graph_ms(calls[tag]))
+    for tag, front in fronts.items():
+        rec = out[tag]
+        rec["wall_ms"] = wall_ms_per_call(lambda: front(fields, capacity),
+                                          20)
+        rec["device_ms"], rec["launches"], rec["kernels"] = device_ms(
+            lambda: front(fields, capacity))
+        rec["bin_instances_graph_ms"] = graph_ms(
+            lambda: binning_of(front, fields, capacity))
+        rec["bin_instances_device_ms"], rec["bin_instances_launches"], _ = \
+            device_ms(lambda: binning_of(front, fields, capacity))
+        rec["count_device_ms"], rec["count_launches"], _ = device_ms(
+            counts[tag])
+        rec["count_wall_ms"] = wall_ms_per_call(counts[tag], 20)
+    if PARENT_EMISSION:
+        saved = (out["parent"]["bin_instances_launches"]
+                 - out["new"]["bin_instances_launches"])
+        out["launches_saved_per_bin_instances"] = saved
+        require(saved >= 15, f"bin_instances launches only {saved} fewer "
+                f"kernels than the parent's ({label})")
+    else:
+        out["parent"] = "not measured (no --parent)"
+    log(f"emission front at {label}: {json.dumps(out)} [{SMI}]")
+    return out
 
 
 def kernel_slots():
@@ -1043,10 +1397,13 @@ def check_backward_kernels(args, label):
             "library_ms": lib_ms, "check": check}
         if tag == "K3":
             results[name]["runs"] = runs
+        extra = ""
+        if tag != "K2":
+            extra = device_times(results[name], kern)
         log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
-            + f", bound {bound_s * 1e3:.4f} ms ({by})"
+            + f", bound {bound_s * 1e3:.4f} ms ({by}){extra}"
             + (f", runs {runs}" if tag == "K3" else "") + f" [{SMI}]")
 
     def k2_check(got, ref):
@@ -1202,16 +1559,16 @@ def train_phase(dev, cfg, scaffold, cams, targets):
                                  "k1": args["run_forward"]}, label, True)
     results.update(check_backward_kernels(args, label))
     with torch.no_grad():
-        checked, ratio, same = check_agreement(
+        checked, ratio, n_equal = check_agreement(
             *args["run_forward"], rt.run_forward, rt.run_backward, label)
         nocull = check_without_cull(args["run_forward"],
                                     args["run_backward"], label)
     log(f"{label}: K1 and K2 blend the same pairs: at {checked} (tile, "
         f"pixel) pairs K1's Σw is bit-equal to K2's weights summed in K1's "
-        f"order at {same}, and within {ratio:.3g} of the float32 rounding "
+        f"order at {n_equal}, and within {ratio:.3g} of the float32 rounding "
         "limit of their float64 sum")
     results["tile_backward"]["agreement"] = {
-        "pairs": checked, "bit_equal": same, "worst_of_limit": ratio}
+        "pairs": checked, "bit_equal": n_equal, "worst_of_limit": ratio}
     results["tile_forward"]["nocull_ms"] = nocull["rasterize_fwd"]
     results["tile_backward"]["nocull_ms"] = nocull["rasterize_bwd"]
     del args
@@ -1271,11 +1628,6 @@ def check_pallas_kernels(args, label):
         out = fn(*a)
         sync()          # a fault during the launch surfaces here
         return out
-
-    def same(a, b):
-        if isinstance(a, tuple):
-            return all(torch.equal(x, y) for x, y in zip(a, b))
-        return torch.equal(a, b)
 
     k9a, k9b = args["expand1"], args["expand2"]
     (cols,) = args["pack_columns"]
@@ -1340,10 +1692,11 @@ def check_pallas_kernels(args, label):
             results[name]["check"] = ("bit-equal, rerun bit-equal, equal to "
                                       "K3 on the transposed rows")
             results[name]["runs"] = runs
+        extra = device_times(results[name], lambda: kern(*a))
         log(f"{tag} {name} at {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
-            + f", bound {bound_ms:.4f} ms (bytes: {moved[name]})"
+            + f", bound {bound_ms:.4f} ms (bytes: {moved[name]}){extra}"
             + (f", runs {runs}" if tag == "K7" else "") + f" [{SMI}]")
     log(f"K9a: {emit} emitting gaussians, row table {row_cap}; K9b: {kept} "
         f"kept rows, capacity {capacity}; K7: {n} live instances")
@@ -1476,10 +1829,13 @@ def build_kernels(parent):
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     procs = variant_build(parent, "parent") if parent else {}
+    emission = parent_emission_build(parent) if parent else None
     nocull = variant_build(os.path.dirname(os.path.abspath(__file__)),
                            "nocull", ["-DGS_NO_CULL"])
     took = cuda_build.build()
     variant_load(procs, PARENT, "parent")
+    if emission:
+        parent_emission_load(*emission)
     variant_load(nocull, NOCULL, "nocull")
     log(f"nvcc build of {sorted(took) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s (parallel: "
@@ -1533,6 +1889,18 @@ def render_phase(dev):
         results = check_kernels(
             inp, f"render view 0, capacity {capacity}, "
             f"{int(inp['binning'].num_instances)} instances", True)
+        # K5 and K6 where the row table overflows (ROW_RATIO slots per row
+        # of demand halve it) and where only the instance slots do
+        n_rows = int(inp["binning"].num_rows)
+        n_inst = int(inp["binning"].num_instances)
+        require(ROW_RATIO * n_rows < n_inst, "no capacity overflows only "
+                "the instance slots at view 0")
+        for cap, what in ((n_rows, "the row table"),
+                          (ROW_RATIO * n_rows, "the instance slots")):
+            check_expand(inp["k5"][:7] + (row_table_size(cap), cap)
+                         + inp["k5"][9:], inp["k6"][4],
+                         f"render view 0 at capacity {cap}, which overflows "
+                         f"{what} ({n_rows} rows, {n_inst} instances)")
     del inp
 
     # (c) the render path through its entry points --------------------------
@@ -1635,7 +2003,8 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches):
         if r:
             rec["render"] = {k: r[k] for k in (
                 "shapes", "launches", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
+                "bound_ms", "bound_by", "library_ms", "graph_ms",
+                "device_ms", "launches_per_call", "front") if k in r}
         out.append(rec)
     return {"kernels": out}
 

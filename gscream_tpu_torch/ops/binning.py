@@ -7,14 +7,18 @@ preprocess must have run with ``opacity=``) in the **precise** order, a
 stable sort on (tile, depth bits) — the reference's 64-bit radix key
 (``rasterizer_impl.cu:306-314``).  The steps:
 
-1. rect heights of the emitting gaussians and their exclusive prefix sum
-   (``torch.cumsum``), giving each gaussian its range of row-table slots;
-2. K5 (:func:`~.emission.expand_gauss_rows`) builds the row table;
-3. the prefix sum of the row widths gives each row its instance slots;
-4. K6 (:func:`~.emission.expand_rows`) writes the instance slots;
-5. one stable ``torch.sort`` on ``tile << 32 | depth_bits`` (depth is at
+1. K5 (:func:`~.emission.expand_gauss_rows`), one kernel from the splats:
+   each gaussian's rect height and its range of row-table slots (the
+   prefix sum of the heights), the row table, each row's first instance
+   slot (the prefix sum of the row widths), each gaussian's emission
+   offset, and the row and instance totals;
+2. K6 (:func:`~.emission.expand_rows`) writes the instance slots;
+3. one stable ``torch.sort`` on ``tile << 32 | depth_bits`` (depth is at
    least 0.2, so its float32 bits are a positive int32 that orders like
    the float), then ``torch.searchsorted`` for the tile ranges.
+
+:func:`emission_counts` is step 1 counting only, one launch, or step 1
+itself at a given row table.
 
 The capacity is fixed by the caller.  Overflow is reported, never silent:
 trailing instances (highest gaussian indices in emission order) are
@@ -38,8 +42,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .emission import (DEPTH_INVALID, expand1, expand2, expand_gauss_rows,
-                       expand_rows)
+from .emission import (DEPTH_INVALID, NO_CLAMP, count_emission,
+                       exclusive_with_total, expand1, expand2,
+                       expand_gauss_rows, expand_rows, rect_heights)
 from .projection import Splats
 
 # instance slots per row-table slot (the row table has capacity //
@@ -86,58 +91,38 @@ def num_tiles(width: int, height: int, tile_w: int, tile_h: int) -> int:
     return (-(-width // tile_w)) * (-(-height // tile_h))
 
 
-def exclusive_with_total(x: torch.Tensor) -> torch.Tensor:
-    """(n,) int32 → (n+1,) int32 exclusive prefix sum, total appended."""
-    out = torch.zeros(x.shape[0] + 1, dtype=torch.int32, device=x.device)
-    out[1:] = torch.cumsum(x, 0, dtype=torch.int32)
-    return out
-
-
-def _rect_heights(splats: Splats) -> torch.Tensor:
-    """(N,) int32 rect heights in tile rows, 0 for a gaussian that emits
-    nothing (``binning.py:178-185``)."""
-    rmin, rmax = splats.rect_min, splats.rect_max
-    return torch.where((splats.radius > 0) & (rmax[:, 0] > rmin[:, 0]),
-                       rmax[:, 1] - rmin[:, 1], torch.zeros_like(rmin[:, 1]))
-
-
-def _row_offsets(splats: Splats) -> torch.Tensor:
-    """(N+1,) int32: exclusive prefix sum of the emitting gaussians' rect
-    heights, total appended."""
-    return exclusive_with_total(_rect_heights(splats))
-
-
-def _row_table(splats: Splats, row_cap: int, tile_w: int, tile_h: int,
-               grid_x: int):
+def _splat_fields(splats: Splats):
+    """The splat fields K5 reads, in its argument order."""
     if splats.t_iso is None:
         raise NotImplementedError(
             "only row-tight emission is ported: run preprocess with "
             "opacity= so that the splats carry t_iso")
-    row_offs = _row_offsets(splats)
-    rows = expand_gauss_rows(
-        row_offs, splats.rect_min.contiguous(), splats.rect_max.contiguous(),
-        splats.mean2d.contiguous(), splats.conic.contiguous(),
-        splats.t_iso.contiguous(), splats.depth.contiguous(), row_cap,
-        tile_w, tile_h, grid_x)
-    w_row = rows[3]
-    ioffs = (torch.cumsum(w_row, 0) - w_row).to(torch.int32)
-    total = (ioffs[-1] + w_row[-1]).to(torch.int32)
-    return row_offs, rows, ioffs, total
+    return (splats.radius.contiguous(), splats.rect_min.contiguous(),
+            splats.rect_max.contiguous(), splats.mean2d.contiguous(),
+            splats.conic.contiguous(), splats.t_iso.contiguous(),
+            splats.depth.contiguous())
 
 
 def emission_counts(splats: Splats, tile_w: int, tile_h: int,
-                    row_cap: int):
-    """(num_instances, num_rows) that :func:`bin_instances` would emit;
-    ``row_cap`` must hold every rect row (size it from ``num_rows``, which
-    is exact either way) or the instance count under-reports.  The counts
-    do not depend on the tile grid's width, so a unit ``grid_x`` serves."""
-    row_offs, _, _, total = _row_table(splats, max(row_cap, 1), tile_w,
-                                       tile_h, 1)
-    return total, row_offs[-1]
+                    row_cap: Optional[int] = None):
+    """(num_instances, num_rows) that :func:`bin_instances` would emit.
+    Without ``row_cap``, one counting launch (:func:`~.emission.
+    count_emission`) that needs no row table; with it, K5 at a row table
+    of ``row_cap`` slots, which must hold every rect row (size it from
+    ``num_rows``, which is exact either way) or the instance count
+    under-reports.  The counts do not depend on the tile grid's width, so
+    a unit ``grid_x`` serves."""
+    fields = _splat_fields(splats)
+    if row_cap is None:
+        counts = count_emission(*fields, tile_w, tile_h)
+    else:
+        counts = expand_gauss_rows(*fields, max(row_cap, 1), NO_CLAMP,
+                                   tile_w, tile_h, 1).counts
+    return counts[1], counts[0]
 
 
 def sort_instances(tile, depth_bits, n_tiles: int):
-    """Step 5: one stable sort of the instance slots on ``tile << 32 |
+    """Step 3: one stable sort of the instance slots on ``tile << 32 |
     depth_bits`` → (sorted tile (capacity,) int32, the sort order (the
     emission index of each sorted slot), tile_start and tile_count
     (n_tiles,) int32 by ``searchsorted``)."""
@@ -163,26 +148,20 @@ def bin_instances(splats: Splats, capacity: int, width: int, height: int,
     grid_x = -(-width // tile_w)
     n_tiles = num_tiles(width, height, tile_w, tile_h)
 
-    row_offs, rows, ioffs, total = _row_table(splats, row_cap, tile_w,
-                                              tile_h, grid_x)
-    inst = expand_rows(rows, ioffs, capacity, n_tiles)
+    table = expand_gauss_rows(*_splat_fields(splats), row_cap, capacity,
+                              tile_w, tile_h, grid_x)
+    inst = expand_rows(table.rows, table.ioffs, table.counts, capacity,
+                       n_tiles)
     sorted_tile, order, tile_start, tile_count = sort_instances(
         inst[0], inst[2], n_tiles)
-
-    # per-gaussian emission offsets: the row prefix at each gaussian's
-    # first row (empty gaussians inherit the next start), binning.py:485-490
-    ioffs_ext = torch.cat([ioffs, total.reshape(1)])
-    goffs = ioffs_ext[torch.clamp_max(row_offs[:-1], row_cap).long()]
-    offsets = torch.clamp_max(torch.cat([goffs, total.reshape(1)]),
-                              capacity)
     return Binning(gauss_id=inst[1][order],
                    tile_id=sorted_tile,
                    tile_start=tile_start,
                    tile_count=tile_count,
-                   num_instances=total,
+                   num_instances=table.counts[1],
                    emit_slot=order.to(torch.int32),
-                   offsets=offsets,
-                   num_rows=row_offs[-1])
+                   offsets=table.offsets,
+                   num_rows=table.counts[0])
 
 
 def _compact_order(keep: torch.Tensor) -> torch.Tensor:
@@ -217,7 +196,7 @@ def bin_instances_pallas(splats: Splats, opacity, colors, unc,
 
     # --- stage A: compact the emitting gaussians (stable: original order)
     rmin, rmax = splats.rect_min, splats.rect_max
-    rect_h = _rect_heights(splats)
+    rect_h = rect_heights(splats.radius, rmin, rmax)
     row_offs = exclusive_with_total(rect_h)
     order_a = _compact_order(rect_h > 0)
     ro = exclusive_with_total(rect_h[order_a])

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: K5, K6, K4, K3, K7, K8, K9a and K9b bit-equal (K3 and K7 also on
-a rerun, to each other, and on runs up to 2,000 long), K1 within
+a rerun, to each other, and on runs up to 2,000 long; K5 and K6 also on
+a rerun and a CUDA-graph replay, on chunks that emit nothing or hold
+one gaussian of 27 x 41 tiles, on 2^21 gaussians and at capacities that
+overflow the row table or the instance slots), K1 within
 1e-4·max(1, |plain|) except
 where the T < 1e-4 stop moves by one instance (≤ 0.1% of the outputs),
 K2 per output lane within 1e-3·scale + 1e-2·|plain| (scale = max |plain|)
@@ -62,28 +65,133 @@ def _splats(dev, seed, n=800, w=160, h=96, spread=2.0, log_op=(-3, -0.02),
     return s, extra, w, h
 
 
-def _k5_args(s, row_cap, w):
-    from gscream_tpu_torch.ops.binning import _row_offsets
-    return (_row_offsets(s), s.rect_min.contiguous(),
-            s.rect_max.contiguous(), s.mean2d.contiguous(),
-            s.conic.contiguous(), s.t_iso.contiguous(), s.depth.contiguous(),
-            row_cap, 32, 32, -(-w // 32))
+def _k5_args(s, row_cap, capacity, w):
+    return (s.radius, s.rect_min.contiguous(), s.rect_max.contiguous(),
+            s.mean2d.contiguous(), s.conic.contiguous(),
+            s.t_iso.contiguous(), s.depth.contiguous(), row_cap, capacity,
+            32, 32, -(-w // 32))
+
+
+def _same_table(got, ref):
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def _expand_both(args, n_tiles):
+    """K5 and K6 on ``args`` against their plain versions, bit for bit, and
+    against themselves on a second call and on a CUDA-graph replay (the
+    look-back scratch is zeroed inside the captured call); returns K5's
+    table."""
+    from gscream_tpu_torch.ops import emission as em
+    capacity = args[8]
+    table = em.expand_gauss_rows(*args)
+    torch.cuda.synchronize()
+    _same_table(table, em.expand_gauss_rows_plain(*args))
+    k6_args = (table.rows, table.ioffs, table.counts, capacity, n_tiles)
+    inst = em.expand_rows(*k6_args)
+    torch.cuda.synchronize()
+    assert torch.equal(inst, em.expand_rows_plain(*k6_args))
+    _same_table(em.expand_gauss_rows(*args), table)
+    assert torch.equal(em.expand_rows(*k6_args), inst)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        t_g = em.expand_gauss_rows(*args)
+        i_g = em.expand_rows(t_g.rows, t_g.ioffs, t_g.counts, capacity,
+                             n_tiles)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_table(t_g, table)
+        assert torch.equal(i_g, inst)
+    return table
 
 
 @pytest.mark.parametrize("seed,capacity", [(0, 1 << 14), (1, 512)])
 def test_expand_kernels_bit_equal(dev, seed, capacity):
-    from gscream_tpu_torch.ops import emission as em
     s, _, w, h = _splats(dev, seed)
-    args = _k5_args(s, capacity // 2, w)
-    rows = em.expand_gauss_rows(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(rows, em.expand_gauss_rows_plain(*args))
-    ioffs = (rows[3].cumsum(0) - rows[3]).int()
-    n_tiles = -(-w // 32) * -(-h // 32)
-    inst = em.expand_rows(rows, ioffs, capacity, n_tiles)
-    torch.cuda.synchronize()
-    assert torch.equal(inst, em.expand_rows_plain(rows, ioffs, capacity,
-                                                  n_tiles))
+    _expand_both(_k5_args(s, capacity // 2, capacity, w),
+                 -(-w // 32) * -(-h // 32))
+
+
+def _synthetic_fields(dev, n, seed, culled=0.3, gx=41, gy=27):
+    """``n`` random splats on a ``gx`` x ``gy`` grid of 32-pixel tiles, as
+    K5 reads them: centres anywhere on and around the image, 2D standard
+    deviations log-uniform in 0.5-300 px with a random correlation, t_iso
+    in 0-6 (a tenth 0, which keeps the whole rect), ``culled`` of them
+    with radius 0, the tile rect of the 3-sigma circle."""
+    rng = np.random.default_rng(seed)
+    wpx, hpx = 32 * gx, 32 * gy
+    mx = rng.uniform(-64, wpx + 64, n)
+    my = rng.uniform(-64, hpx + 64, n)
+    sx, sy = np.exp(rng.uniform(np.log(0.5), np.log(300), (2, n)))
+    rho = rng.uniform(-0.95, 0.95, n)
+    a, b, c = sx * sx, rho * sx * sy, sy * sy
+    det = a * c - b * b
+    conic = np.stack([c / det, -b / det, a / det], -1)
+    t_iso = np.where(rng.uniform(size=n) < 0.1, 0.0, rng.uniform(0, 6, n))
+    r = np.ceil(3 * np.maximum(sx, sy))
+    radius = np.where(rng.uniform(size=n) < culled, 0, r)
+    rmin = np.stack([np.clip(np.floor((mx - r) / 32), 0, gx),
+                     np.clip(np.floor((my - r) / 32), 0, gy)], -1)
+    rmax = np.stack([np.clip(np.ceil((mx + r) / 32), 0, gx),
+                     np.clip(np.ceil((my + r) / 32), 0, gy)], -1)
+    depth = rng.uniform(0.2, 10, n)
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return [i32(radius), i32(rmin), i32(rmax),
+            f32(np.stack([mx, my], -1)), f32(conic), f32(t_iso), f32(depth)]
+
+
+def test_expand_chunks_and_lookback(dev):
+    """K5's chunking on a synthetic scene of 5 chunks and 77 gaussians
+    (not a multiple of the chunk): chunk 1 emits nothing, chunk 3 holds one
+    gaussian of 27 rows x 41 tiles and nothing else; at a capacity that
+    fits, one that overflows the row table and one that overflows only
+    the instance slots."""
+    from gscream_tpu_torch.ops import emission as em
+    n = 5 * em.K5_CHUNK + 77
+    f = _synthetic_fields(dev, n, 3)
+    f[0][em.K5_CHUNK:2 * em.K5_CHUNK] = 0
+    big = 3 * em.K5_CHUNK + 100
+    f[0][3 * em.K5_CHUNK:4 * em.K5_CHUNK] = 0
+    f[0][big] = 2000
+    f[1][big] = torch.tensor([0, 0], dtype=torch.int32)
+    f[2][big] = torch.tensor([41, 27], dtype=torch.int32)
+    f[3][big] = torch.tensor([656.0, 432.0])
+    f[4][big] = torch.tensor([1e-5, 0.0, 1e-5])
+    f[5][big] = 5.0
+    fields = [x.contiguous() for x in f]
+    counts = em.count_emission(*fields, 32, 32)
+    n_rows, n_inst = counts.tolist()
+    assert torch.equal(counts, em.count_emission_plain(*fields, 32, 32))
+    for row_cap, capacity in ((n_rows + 100, 2 * n_inst),
+                              (n_rows // 2, 2 * n_inst),
+                              (n_rows, n_inst // 2)):
+        table = _expand_both(fields + [row_cap, capacity, 32, 32, 41],
+                             41 * 27)
+        assert table.counts[0] == n_rows
+        big_rows = (table.rows[1] == big) & (
+            torch.arange(row_cap, device=dev) < min(n_rows, row_cap))
+        if row_cap > n_rows:
+            assert int(big_rows.sum()) == 27
+            assert int(table.rows[3][big_rows].max()) == 41
+            assert table.counts[1] == n_inst
+
+
+def test_expand_lookback_chain_of_4096_chunks(dev):
+    """2^21 synthetic gaussians, so that 4,096 CTAs of 512 chain their two
+    look-backs (over several waves), at a capacity that fits and one that
+    overflows."""
+    fields = _synthetic_fields(dev, 1 << 21, 5, culled=0.5)
+    from gscream_tpu_torch.ops import emission as em
+    n_rows, n_inst = em.count_emission(*fields, 32, 32).tolist()
+    for row_cap, capacity in ((n_rows, n_inst + 1000),
+                              (n_rows // 3, n_inst // 5)):
+        _expand_both(fields + [row_cap, capacity, 32, 32, 41], 41 * 27)
 
 
 @pytest.mark.parametrize("seed", [0, 2])
