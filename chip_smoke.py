@@ -105,6 +105,14 @@ DEFAULT_ROUTE = ("tile_forward", "tile_backward", "segment_reduce",
 PALLAS_ROUTE = ("tile_forward", "tile_backward", "segment_reduce_rows",
                 "pack_columns", "expand1", "expand2")
 PALLAS_ENV = {"GSCREAM_EMIT": "pallas", "GSCREAM_REORDER": "gather"}
+# phase (f): the training loop's schedule, the reference OptimConfig's
+# (start_stat 500, densify every 100 from 1,500 to 15,000, phase 2 from
+# 15,000) compressed to 48 iterations; its thresholds stay the reference's
+LOOP_ITERS = 48
+LOOP_CHECKPOINT = 24
+LOOP_OPTIM = dict(iterations=LOOP_ITERS, start_stat=2, update_from=4,
+                  update_interval=12, update_until=LOOP_ITERS,
+                  start_crossattn_from=LOOP_CHECKPOINT)
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth and non-tensor float32 throughput (132 SMs x 128 lanes x 2 per
 # FMA at 1.98 GHz)
@@ -1817,6 +1825,217 @@ def pallas_phase(dev, cfg, scaffold, cams, targets):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# phase (f): the training loop
+
+def states_equal(a, b):
+    """Every parameter, moment, statistic, ``alive``, the step counts and
+    the token generator of two train states bit-equal: (equal, the first
+    field that differs)."""
+    import torch
+    from gscream_tpu_torch.train.state import named_params
+    pa, pb = named_params(a.scaffold), named_params(b.scaffold)
+    pairs = [(f"param {k}", pa[k], pb[k]) for k in pa]
+    pairs += [(f"m {k}", a.m[k], b.m[k]) for k in pa]
+    pairs += [(f"v {k}", a.v[k], b.v[k]) for k in pa]
+    pairs += [(f"stats {f}", x, y)
+              for f, x, y in zip(a.stats._fields, a.stats, b.stats)]
+    pairs += [("alive", a.scaffold.alive, b.scaffold.alive),
+              ("generator", a.generator.get_state(),
+               b.generator.get_state())]
+    if (a.step, a.step_c) != (b.step, b.step_c):
+        return False, f"step counts {(a.step, a.step_c)} != " \
+            f"{(b.step, b.step_c)}"
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            return False, name
+    return True, ""
+
+
+def loop_phase(dev, cfg, scaffold, cams, targets):
+    """Phase (f): ``train_scene`` on the benchmark model (warm-started from
+    its anchors, written as a PLY; decoders from the loop's own seeded
+    init) over the four training views with their teacher targets, view
+    0 the reference, on the compressed schedule LOOP_OPTIM, from an
+    instance capacity below the demand; then a second run restored from
+    the checkpoint at LOOP_CHECKPOINT, which must end bit-equal; then the
+    costs of densification, checkpoints and one phase-2 step.  Returns
+    each kernel's launches over the first run."""
+    import shutil
+    import torch
+    from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
+    from gscream_tpu_torch.data.synthetic import SyntheticView
+    from gscream_tpu_torch.model.densify import adjust_anchors
+    from gscream_tpu_torch.model.io import (load_checkpoint,
+                                            save_anchors_ply,
+                                            save_checkpoint)
+    from gscream_tpu_torch.train.loop import (capacity_tier,
+                                              densify_generator, train_scene)
+    from gscream_tpu_torch.train.step import train_step
+    t_start = time.perf_counter()
+    opt = OptimConfig(**LOOP_OPTIM)
+    run = RunConfig(model=ModelConfig(
+        feat_dim=cfg.feat_dim, n_offsets=cfg.n_offsets,
+        voxel_size=cfg.voxel_size, anchor_capacity=cfg.capacity),
+        optim=opt, seed=0)
+    points = np.random.default_rng(0).normal(
+        0, 0.6, (N_ANCHORS, 3)).astype(np.float32)   # bench_scene's cloud
+    views = [SyntheticView(cams[i], *targets[i][:3], f"view_{i}")
+             for i in range(N_TRAIN_VIEWS)]
+    demand = instance_demand(scaffold, cfg, cams[0])
+    start_cap = capacity_tier(demand // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "bench.ply")
+        save_anchors_ply(ply, scaffold, cfg)
+        stamps, saved = {}, {}
+
+        def callback(it, ts, aux):
+            stamps[it] = time.perf_counter()
+            if opt.update_from < it < opt.update_until and \
+                    it % opt.update_interval == 0:
+                # what the densification after this step sees
+                st = ts.stats
+                seen = st.offset_denom > opt.update_interval * \
+                    opt.success_threshold * 0.5
+                require(bool(seen.any()), f"no offset was seen often "
+                        f"enough to densify at {it}")
+                mean = st.offset_grad_accum / st.offset_denom.clamp_min(1)
+                over = [int((seen & (mean >= opt.densify_grad_threshold
+                                     * 2 ** lv)).sum())
+                        for lv in range(cfg.update_depth)]
+                log(f"  before the densification at {it}: {int(seen.sum())} "
+                    f"offsets seen often enough, of which {over} reach "
+                    f"each level's gradient threshold; mean gradient "
+                    f"median {float(mean[seen].median()):.3e}, max "
+                    f"{float(mean[seen].max()):.3e}")
+            if it == LOOP_CHECKPOINT + 1:
+                # the loop rewrites ckpt at every interval: keep this one
+                for suffix in ("", "_meta.json"):
+                    shutil.copy(os.path.join(tmp, "a", "ckpt" + suffix),
+                                os.path.join(tmp, "ckpt24" + suffix))
+                saved["it"] = it - 1
+
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        ts_a, log_a = train_scene(
+            views, 0, points, run, out_dir=os.path.join(tmp, "a"),
+            capacity=start_cap, callback=callback, pretrained_ply=ply,
+            checkpoint_interval=LOOP_CHECKPOINT, device=dev)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        log(f"training loop: {LOOP_ITERS} iterations in {run_s:.2f} s "
+            f"(first calls included), starting capacity {start_cap} "
+            f"(view 0 demand {demand}); launches {launches} [{SMI}]")
+
+        # what the run must show
+        require(all(math.isfinite(x) for x in log_a.losses),
+                f"a loss is not finite: {log_a.losses}")
+        require(len(log_a.losses) == LOOP_ITERS, "iterations missing")
+        dens = [e for e in log_a.events if e["event"] == "densify"]
+        grows = [e for e in dens if e["alive_after"] > e["alive_before"]]
+        overflows = [e for e in log_a.events if e["event"] == "overflow"]
+        for e in log_a.events:
+            log(f"  loop event {e}")
+        require(len(dens) >= 2, f"{len(dens)} densifications")
+        require(grows, "no densification grew the anchors")
+        require(overflows, "no step overflowed its starting capacity")
+        for st in log_a.steps:
+            require(st["instances"] <= st["capacity"],
+                    f"iteration {st['it']} trained past its capacity: {st}")
+        ok_views = {st["is_ref"] for st in log_a.steps
+                    if st["use_cross"] and st["cross_ok"]}
+        require(ok_views == {True, False}, "phase 2 ran with cross_ok on "
+                f"{ok_views} views only (reference view: True)")
+        for name in DEFAULT_ROUTE:
+            require(launches[name] > 0, f"kernel {name} was not launched "
+                    "by the training loop")
+        for st, loss in zip(log_a.steps, log_a.losses):
+            log(f"  loop it {st['it']:2d} view {st['view']} "
+                f"{'phase 2' if st['use_cross'] else 'phase 1'}"
+                f"{' cross_ok' if st['cross_ok'] else ''}: loss "
+                f"{loss:.6f}, instances {st['instances']} of capacity "
+                f"{st['capacity']}")
+
+        # wall ms per iteration: between consecutive callbacks (each
+        # iteration's step reads its scalars to the host once)
+        per_it = {it: (stamps[it] - stamps[it - 1]) * 1e3
+                  for it in stamps if it - 1 in stamps}
+        p1 = [t for it, t in per_it.items() if it <= LOOP_CHECKPOINT]
+        p2 = [t for it, t in per_it.items() if it > LOOP_CHECKPOINT + 1]
+        log(f"training loop wall ms per iteration: phase 1 median "
+            f"{np.median(p1):.3f} ({len(p1)} iterations), phase 2 median "
+            f"{np.median(p2):.3f} ({len(p2)} iterations); all "
+            f"{[round(per_it[i], 2) for i in sorted(per_it)]} [{SMI}]")
+
+        # the resume: restored at LOOP_CHECKPOINT, run to the end
+        require(saved.get("it") == LOOP_CHECKPOINT, "no checkpoint kept")
+        ts_b, log_b = train_scene(
+            views, 0, points, run, out_dir=os.path.join(tmp, "b"),
+            pretrained_ply=ply, start_checkpoint=os.path.join(tmp, "ckpt24"),
+            device=dev)
+        require(log_b.steps[0]["it"] == LOOP_CHECKPOINT + 1,
+                f"the resumed run started at {log_b.steps[0]['it']}")
+        same, where = states_equal(ts_a, ts_b)
+        require(same, f"the run resumed at {LOOP_CHECKPOINT} differs from "
+                f"the uninterrupted run at {LOOP_ITERS}: {where}")
+        require(log_b.losses == log_a.losses[LOOP_CHECKPOINT:],
+                "the resumed run's losses differ")
+        log(f"resume from the checkpoint at {LOOP_CHECKPOINT}: every "
+            f"parameter, moment, statistic, alive and the generator "
+            f"bit-equal to the uninterrupted run at {LOOP_ITERS}; losses "
+            f"{LOOP_CHECKPOINT + 1}-{LOOP_ITERS} equal")
+
+        # the costs around the steps
+        def densify():
+            return adjust_anchors(
+                ts_a.scaffold, ts_a.stats, ts_a.m, ts_a.v,
+                densify_generator(0, LOOP_ITERS, dev), cfg,
+                check_interval=opt.update_interval,
+                success_threshold=opt.success_threshold,
+                grad_threshold=opt.densify_grad_threshold,
+                min_opacity=opt.min_opacity)
+        dens_ms = wall_ms_per_call(densify, 3)
+        path = os.path.join(tmp, "timed_ckpt")
+        save_ms = wall_ms_per_call(lambda: save_checkpoint(path, ts_a), 3)
+        load_ms = wall_ms_per_call(lambda: load_checkpoint(path, ts_b), 3)
+        log(f"adjust_anchors {dens_ms:.3f} ms, save_checkpoint "
+            f"{save_ms:.3f} ms ({os.path.getsize(path)} bytes), "
+            f"load_checkpoint {load_ms:.3f} ms (means of 3, each to a "
+            f"sync) [{SMI}]")
+
+    # one phase-2 step on the reference view, under the profiler
+    state = [ts_b]
+    cap = max(st["capacity"] for st in log_a.steps)
+    box = torch.tensor([0, HEIGHT, 0, WIDTH], dtype=torch.int32, device=dev)
+
+    def one_step():
+        state[0], aux = train_step(
+            state[0], cams[0], *targets[0], box, cfg=cfg, opt=opt,
+            is_ref=True, use_crossattn=True, capacity=cap, width=WIDTH,
+            height=HEIGHT, accumulate=True, feat_frozen=True)
+        require(bool(aux.packed[4]) and aux.packed[2] <= cap,
+                f"the profiled phase-2 step: {aux.packed.tolist()}")
+    kernels, layers, busy_ms, wall_ms = profile_calls(one_step, ("step/",))
+    log(f"profile of one phase-2 step (reference view, cross_ok): device "
+        f"busy {busy_ms:.3f} ms in {sum(k[1] for k in kernels)} kernel "
+        f"launches; wall {wall_ms:.3f} ms under the profiler (idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); idle share against the "
+        f"loop's phase-2 median {max(0.0, 1 - busy_ms / np.median(p2)):.3f}"
+        f"; cross-attention (range step/crossattn) "
+        f"{layers.get('step/crossattn', 0.0):.4f} ms device, token "
+        f"sampling {layers.get('step/tokens', 0.0):.4f} ms [{SMI}]")
+    for name, dev_ms in sorted(layers.items()):
+        log(f"  range {name}: {dev_ms:.4f} ms device")
+    for dev_ms, calls, name in kernels[:10]:
+        log(f"  {dev_ms:9.4f} ms  x{calls:<3d} {name[:90]}")
+    log(f"phase (f) took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 SMI = ""
 
 
@@ -1983,12 +2202,14 @@ def render_phase(dev):
     return results, cfg, scaffold, cams
 
 
-def kernels_line(render, train, train_launches, pallas, pallas_launches):
+def kernels_line(render, train, train_launches, pallas, pallas_launches,
+                 loop_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), the others from
     phase (d)), timed at its view 0 and holding that route's launch
-    count; beside it both training routes' counts and the render path's,
-    and, for the kernels the render path runs, its own line."""
+    count; beside it both training routes' counts, the training loop's
+    (phase (f)) and the render path's, and, for the kernels the render
+    path runs, its own line."""
     out = []
     for name in launch_counters():
         if name in pallas:
@@ -1998,6 +2219,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches):
             rec = dict(train[name])
         rec["launches_train"] = train_launches[name]
         rec["launches_emit_pallas"] = pallas_launches[name]
+        rec["launches_loop"] = loop_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -2030,9 +2252,10 @@ def main():
     train, train_launches = train_phase(dev, cfg, scaffold, cams, targets)
     pallas, pallas_launches = pallas_phase(dev, cfg, scaffold, cams,
                                            targets)
+    loop_launches = loop_phase(dev, cfg, scaffold, cams, targets)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
-                                  pallas_launches)))
+                                  pallas_launches, loop_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,18 +19,25 @@ Pallas-emission configuration (``GSCREAM_EMIT=pallas``: the EXPAND1/
 EXPAND2 emission and the column pack) and its row reduction modes
 (``GSCREAM_REORDER=gather|scatter|sort``: the row segment reduction).
 Every Pallas kernel of the JAX package now has its CUDA counterpart.
+On top of them the port trains a scene end to end:
+``train.loop.train_scene`` runs phase 1, densification
+(``model.densify.adjust_anchors``) and phase-2 cross-attention
+(``ops.attention``), checkpoints the whole state (``model.io``) and
+resumes from it bit for bit; ``train_torch.py`` drives it.
 
 Subpackages
 -----------
 - ``gscream_tpu_torch.cameras``  camera model + projection matrices
 - ``gscream_tpu_torch.config``   typed config tree (copy of the JAX one)
-- ``gscream_tpu_torch.data``     COLMAP / SPIN-NeRF readers, PLY, spiral
+- ``gscream_tpu_torch.data``     COLMAP / SPIN-NeRF readers, PLY, spiral,
+  the synthetic scene
 - ``gscream_tpu_torch.ops``      projection, binning, emission,
-  rasterizer and shuffle kernels, losses, SSIM, KNN
-- ``gscream_tpu_torch.model``    Scaffold-GS state, MLP decoders, model IO,
-  densification statistics
-- ``gscream_tpu_torch.train``    capacity tiers, render sets, train state
-  (Adam), the phase-1 train step
+  rasterizer and shuffle kernels, the oracle rasterizer, cross-attention,
+  losses, SSIM, KNN
+- ``gscream_tpu_torch.model``    Scaffold-GS state, MLP decoders, model IO
+  and checkpoints, densification
+- ``gscream_tpu_torch.train``    the training loop, capacity tiers, render
+  sets, train state (Adam), the train step (phases 1 and 2), metrics
 
 Nothing here imports ``jax`` or ``gscream_tpu``.
 """

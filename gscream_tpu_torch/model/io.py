@@ -1,6 +1,7 @@
 """Model IO (counterpart of ``gscream_tpu/model/io.py``): the anchor PLY
 and the per-MLP ``.npz`` checkpoint, byte-compatible with the JAX package
-so each package loads the other's models.
+so each package loads the other's models; the full training checkpoint;
+the scene's load-time artifacts.
 
 * :func:`save_anchors_ply` / :func:`load_anchors_ply` — the reference
   PLY anchor layout (gaussian_model.py:620-686): alive anchors only,
@@ -11,7 +12,14 @@ so each package loads the other's models.
   ['b']`` and ``['w']`` for the decoders (weights stored ``(fan_in,
   fan_out)``), ``crossattn/[<flat index i>]`` for the eight cross-attention
   arrays.  They are written in the same order, so the archives' members
-  are identical.
+  are identical;
+* :func:`save_checkpoint` / :func:`load_checkpoint` — the whole train
+  state (parameters, both moment dicts, statistics, step counts,
+  ``alive``, ``xyz_max`` and the token generator's state) as one
+  ``torch.save`` file, from which a run resumes bit for bit (the JAX
+  package writes an orbax directory instead; the two do not read each
+  other's);
+* :func:`write_scene_artifacts` — ``input.ply`` and ``cameras.json``.
 """
 from __future__ import annotations
 
@@ -168,3 +176,100 @@ def load_trained_scaffold(model_path: str, iteration: int = -1,
     state = ScaffoldState(params=params, mlps=mlps, alive=alive,
                           xyz_max=xyz_max)
     return state, cfg, it
+
+
+CHECKPOINT_FORMAT = "gscream_tpu_torch.train_state.v1"
+
+
+def save_checkpoint(path: str, ts) -> None:
+    """The full ``TrainState`` to ``path`` (one file, written beside and
+    renamed over, so a reader never sees half of it); tensors are stored
+    on the CPU."""
+    from ..train.state import named_params
+
+    def host(d):
+        return {k: t.detach().cpu() for k, t in d.items()}
+    sc = ts.scaffold
+    blob = {
+        "format": CHECKPOINT_FORMAT,
+        "params": host(named_params(sc)), "m": host(ts.m), "v": host(ts.v),
+        "stats": host(ts.stats._asdict()),
+        "step": int(ts.step), "step_c": int(ts.step_c),
+        "alive": sc.alive.cpu(), "xyz_max": sc.xyz_max.cpu(),
+        "generator": ts.generator.get_state(),
+    }
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, template):
+    """Inverse of :func:`save_checkpoint`: the checkpoint's values copied
+    into ``template`` (a ``TrainState`` of the same configuration, on the
+    device to restore to): parameters in place, moments, statistics,
+    ``alive`` and ``xyz_max`` as new tensors, the generator's state set.
+    Returns the restored ``TrainState``."""
+    from ..model.densify import DensifyStats
+    from ..train.state import named_params
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if blob.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
+    sc = template.scaffold
+    dev = sc.alive.device
+
+    def same_keys(got, want, what):
+        if set(got) != set(want):
+            raise ValueError(f"{path}: {what} keys differ from the "
+                             f"template's: {sorted(set(got) ^ set(want))}")
+    params = named_params(sc)
+    same_keys(blob["params"], params, "parameter")
+    with torch.no_grad():
+        for k, t in params.items():
+            if tuple(blob["params"][k].shape) != tuple(t.shape):
+                raise ValueError(f"{path}: {k} has shape "
+                                 f"{tuple(blob['params'][k].shape)}, the "
+                                 f"template {tuple(t.shape)}")
+            t.copy_(blob["params"][k])
+
+    def moments(d):
+        same_keys(d, params, "moment")
+        return {k: d[k].to(dev) for k in params}
+    template.generator.set_state(blob["generator"])
+    return template._replace(
+        scaffold=sc._replace(alive=blob["alive"].to(dev),
+                             xyz_max=blob["xyz_max"].to(dev)),
+        m=moments(blob["m"]), v=moments(blob["v"]),
+        step=int(blob["step"]), step_c=int(blob["step_c"]),
+        stats=DensifyStats(**{k: t.to(dev)
+                              for k, t in blob["stats"].items()}))
+
+
+def write_scene_artifacts(model_path: str, views, points) -> None:
+    """The reference Scene's load-time artifacts (scene/__init__.py:62-78):
+    ``input.ply`` (the initial cloud) and ``cameras.json`` (the given
+    views in order — test cams then train cams — with camera_to_JSON's
+    fields: c2w position and rotation, fx/fy)."""
+    import json
+    os.makedirs(model_path, exist_ok=True)
+    pts = np.asarray(points, np.float32)
+    write_ply(os.path.join(model_path, "input.ply"),
+              {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2]})
+    cams = []
+    for i, v in enumerate(views):
+        c = v.camera
+        w2c = c.w2c.detach().cpu().numpy().astype(np.float64)
+        c2w = np.linalg.inv(w2c)
+        cams.append({
+            "id": i,
+            "img_name": getattr(v, "name", f"{i:05d}"),
+            "width": int(c.width),
+            "height": int(c.height),
+            "position": c2w[:3, 3].tolist(),
+            "rotation": [r.tolist() for r in c2w[:3, :3]],
+            "fy": float(c.height / (2.0 * float(c.tan_fovy))),
+            "fx": float(c.width / (2.0 * float(c.tan_fovx))),
+        })
+    with open(os.path.join(model_path, "cameras.json"), "w") as f:
+        json.dump(cams, f)

@@ -25,12 +25,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.attention import FIELDS as CROSSATTN_FIELDS
+from ..ops.attention import attn_shapes, init_bidirectional_attn
 from ..ops.knn import mean_knn_sq_dist
-
-# the cross-attention parameters in the order of the JAX package's
-# ``BidirAttnParams`` (ops/attention.py); this slice only carries them
-CROSSATTN_FIELDS = ("to_qk", "ctx_to_qk", "to_v", "ctx_to_v", "to_out_w",
-                    "to_out_b", "ctx_out_w", "ctx_out_b")
 
 
 def inverse_sigmoid(x):
@@ -80,16 +77,14 @@ class MLP(nn.Module):
 
 class CrossAttnArrays(nn.Module):
     """The JAX ``BidirAttnParams`` arrays as plain buffers, JAX layout
-    (``(fan_in, fan_out)`` weights).  This slice does not run the
-    cross-attention; it only carries the arrays through the model IO."""
+    (``(fan_in, fan_out)`` weights).  Phase 2 hands detached copies of
+    them to autograd as leaves (``train/step.py``) and its own Adam
+    updates the buffers in place."""
 
     def __init__(self, cfg: ScaffoldConfig):
         super().__init__()
-        F, inner = cfg.feat_dim, cfg.attn_heads * cfg.attn_head_dim
-        shapes = {"to_qk": (F, inner), "ctx_to_qk": (F, inner),
-                  "to_v": (F, inner), "ctx_to_v": (F, inner),
-                  "to_out_w": (inner, F), "to_out_b": (F,),
-                  "ctx_out_w": (inner, F), "ctx_out_b": (F,)}
+        shapes = attn_shapes(cfg.feat_dim, cfg.attn_heads,
+                             cfg.attn_head_dim)
         for name in CROSSATTN_FIELDS:
             self.register_buffer(name, torch.zeros(shapes[name]))
 
@@ -99,7 +94,7 @@ class CrossAttnArrays(nn.Module):
 
 
 class ScaffoldMLPs(nn.Module):
-    """The decoder MLPs plus the (not yet used) cross-attention arrays.
+    """The decoder MLPs plus the cross-attention arrays.
 
     ``crossattn`` holds the JAX ``BidirAttnParams`` arrays as plain
     tensors in their JAX layout, so the model IO round trip keeps them.
@@ -156,12 +151,10 @@ def init_mlps(cfg: ScaffoldConfig, generator: torch.Generator,
                 lin.weight.copy_(_uniform(lin.weight.shape, bound,
                                           generator))
                 lin.bias.copy_(_uniform(lin.bias.shape, bound, generator))
+        ca = init_bidirectional_attn(generator, cfg.feat_dim,
+                                     cfg.attn_heads, cfg.attn_head_dim)
         for name, p in mlps.crossattn.arrays():
-            if name.endswith("_b"):
-                p.zero_()
-            else:
-                p.copy_(_uniform(p.shape, 1.0 / np.sqrt(p.shape[0]),
-                                 generator))
+            p.copy_(ca[name])
     return mlps.to(dev)
 
 

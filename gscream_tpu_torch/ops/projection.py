@@ -33,6 +33,13 @@ COV2D_DILATION = 0.3
 EIG_CLAMP = 0.1
 
 
+def clamp_alpha(x: torch.Tensor) -> torch.Tensor:
+    """min(x, 0.99) in value, identity in gradient (projection.py:42-51):
+    the reference backward ignores the clamp (backward.cu:585-604), and the
+    oracle rasterizer keeps that straight-through gradient."""
+    return x + (torch.clamp_max(x, ALPHA_MAX) - x).detach()
+
+
 class Splats(NamedTuple):
     """Screen-space splats: the rasterizer's per-gaussian inputs."""
     mean2d: torch.Tensor    # (N,2) f32 pixel coordinates of the center

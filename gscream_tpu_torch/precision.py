@@ -6,7 +6,9 @@ collapses within ~50 iterations (BASELINE.md:91-96).  On the GPU the
 equivalent hazard is TF32: PyTorch keeps float32 matmuls in full float32
 by default, but cuDNN convolutions run in TF32 unless told otherwise.
 Both switches are pinned off here, at import and again by every entry
-point through :func:`ensure_fp32_matmuls`.
+point through :func:`ensure_fp32_matmuls`, which also has cuDNN pick
+deterministic algorithms for the SSIM convolutions: a training run
+resumed from a checkpoint must replay the uninterrupted run bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 def ensure_fp32_matmuls() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 ensure_fp32_matmuls()

@@ -113,17 +113,27 @@ class TrainState(NamedTuple):
     step: int                    # main optimizer step count
     step_c: int                  # cross-attention optimizer step count
     stats: DensifyStats
+    # the phase-2 token draws (the JAX state's PRNG key), on the state's
+    # device; checkpoints carry its state
+    generator: torch.Generator = None
 
 
-def init_train_state(scaffold: ScaffoldState,
-                     cfg: ScaffoldConfig) -> TrainState:
+def make_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def init_train_state(scaffold: ScaffoldState, cfg: ScaffoldConfig,
+                     seed: int = 0) -> TrainState:
+    """Zero moments and statistics at step 0; the token generator seeded
+    with ``seed`` (the JAX loop keys its state with ``seed + 1``)."""
     params = named_params(scaffold)
+    dev = scaffold.alive.device
     return TrainState(
         scaffold=scaffold,
         m={k: torch.zeros_like(t.detach()) for k, t in params.items()},
         v={k: torch.zeros_like(t.detach()) for k, t in params.items()},
-        step=0, step_c=0,
-        stats=init_stats(cfg, scaffold.alive.device))
+        step=0, step_c=0, stats=init_stats(cfg, dev),
+        generator=make_generator(seed, dev))
 
 
 def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
@@ -133,9 +143,12 @@ def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
     ``ts.scaffold`` carries ``params``, ``mlps``, ``alive`` and
     ``xyz_max`` as :func:`~..model.scaffold.scaffold_from_numpy` takes
     them; ``ts.m`` and ``ts.v`` are ``(AnchorParams, MLPParams)`` trees of
-    the same shapes; ``ts.step``, ``ts.step_c`` and ``ts.stats`` (the five
-    ``DensifyStats`` fields) come across as they are.  The PRNG key is not
-    carried: phase 1 draws no random numbers."""
+    the same shapes, the cross-attention moments among them; ``ts.step``,
+    ``ts.step_c`` and ``ts.stats`` (the five ``DensifyStats`` fields) come
+    across as they are.  The PRNG key is not carried (a JAX key cannot
+    seed a torch.Generator to the same draws): the state gets a generator
+    seeded with 0, and the parity tests feed JAX's draws in place of the
+    port's (``train.step.token_priorities``)."""
     dev = resolve_device(device)
     sc = ts.scaffold
     scaffold = scaffold_from_numpy(sc.params, sc.mlps, sc.alive, cfg,
@@ -150,7 +163,7 @@ def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
                            for x in ts.stats))
     return TrainState(scaffold=scaffold, m=moments(ts.m), v=moments(ts.v),
                       step=int(ts.step), step_c=int(ts.step_c),
-                      stats=stats)
+                      stats=stats, generator=make_generator(0, dev))
 
 
 @torch.no_grad()

@@ -1,26 +1,40 @@
-"""One phase-1 training iteration: decode → rasterize → losses → Adam
+"""One training iteration: decode → rasterize → losses → Adam
 (counterpart of ``gscream_tpu/train/step.py``).
 
 Functional equivalent of one iteration of the reference training loop
-(``train.py:390-616``) without cross-attention:
+(``train.py:390-616``):
 
-1. prefilter anchors for visibility (the densification statistics);
-2. decode neural gaussians, preprocess, bin (no gradient), rasterize
+1. prefilter anchors for visibility (the densification statistics) and,
+   in phase 2, for the foreground/background token sampling;
+2. [phase 2] bidirectional cross-attention between sampled foreground
+   (mask region) and background anchors, EMA-written into the anchor
+   features (``run_crossattn``, gaussian_model.py:553-583; sampling
+   train.py:436-513);
+3. decode neural gaussians, preprocess, bin (no gradient), rasterize
    colour, depth and uncertainty through K1 and its backward K2-K4;
-3. masked RGB + scale/shift depth losses (train.py:535-573);
-4. one masked Adam step with per-group learning rates (in place) and the
-   densification statistics.
+4. masked RGB + scale/shift depth losses (train.py:535-573);
+5. one masked Adam step with per-group learning rates (in place), the
+   cross-attention's own Adam in phase 2, and the densification
+   statistics.
 
 The screen-space gradient for densification is taken as the JAX package
 takes it: a zero (C·k, 2) leaf that requires grad is added to the
 projected means, and its gradient read back (the reference's
 ``screenspace_points`` retain_grad trick,
-gaussian_renderer/__init__.py:124-128).  Phase 2 (``crossattn_update``,
-``sample_cross_tokens``) is not ported yet and raises.
+gaussian_renderer/__init__.py:124-128).
+
+The JAX step is a pure function, and its loop re-runs an overflowed step
+from the state it kept.  This one updates in place, so it reads the
+step's five scalars (``StepAux.packed``) to the host once, after the
+backward and before anything is written, and writes nothing when the
+instance demand exceeds ``capacity`` (or the loss is not finite): the
+state it returns is then the state it was given, token generator
+included, and the caller re-runs the step at a larger capacity.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
@@ -30,6 +44,7 @@ from ..config import OptimConfig
 from ..model.densify import accumulate_stats
 from ..model.scaffold import Decoded, ScaffoldConfig, ScaffoldState, decode
 from ..ops import losses as L
+from ..ops.attention import bidirectional_attn
 from ..ops.binning import Binning, overflow_demand
 from ..ops.projection import Splats, preprocess
 from ..ops.rasterize_tiled import (TILE_H, TILE_W, build_binning,
@@ -44,17 +59,109 @@ class StepAux(NamedTuple):
     num_instances: torch.Tensor   # overflow_demand of the binning
     n_active: torch.Tensor
     cross_ok: torch.Tensor
-    # (5,) float32 [loss, l1, num_instances, n_active, cross_ok]: one
-    # array for the host to fetch per step (counts exact below 2^24)
+    # (5,) float32 [loss, l1, num_instances, n_active, cross_ok] on the
+    # host: the step's one device-to-host read (counts exact below 2^24)
     packed: torch.Tensor = None
 
 
 def pack_aux(loss, l1, num_instances, n_active, cross_ok) -> StepAux:
     f = torch.float32
     packed = torch.stack([loss.to(f), l1.to(f), num_instances.to(f),
-                          n_active.to(f), cross_ok.to(f)])
+                          n_active.to(f), cross_ok.to(f)]).cpu()
     return StepAux(loss=loss, l1=l1, num_instances=num_instances,
                    n_active=n_active, cross_ok=cross_ok, packed=packed)
+
+
+class CrossTokens(NamedTuple):
+    """Phase 2's sampled tokens (``sample_cross_tokens``)."""
+    fg_idx: torch.Tensor      # (T,) int32 anchor slots, by priority
+    bg_idx: torch.Tensor      # (T,) int32
+    fg_valid: torch.Tensor    # (T,) bool: rank < min(n_fg, n_bg, T)
+    bg_valid: torch.Tensor    # (T,) bool
+    ok: torch.Tensor          # () bool: > 11 fg and > 11 bg candidates
+
+
+def token_priorities(ts, n: int):
+    """The uniform priorities of one phase-2 step's token draw, (fg, bg)
+    each (n,), from the state's generator (JAX: ``uniform`` under the two
+    halves of the step's key, step.py:147-156).  The one place the step
+    draws random numbers: ``lax.top_k`` over JAX's draws cannot be
+    reproduced from a torch.Generator, so the parity tests put JAX's draws
+    here (they may read ``ts.step`` to find the step's key)."""
+    dev = ts.scaffold.alive.device
+    return (torch.rand(n, generator=ts.generator, device=dev),
+            torch.rand(n, generator=ts.generator, device=dev))
+
+
+def sample_cross_tokens(priorities, pos_x, pos_y, visible, alive, gt_mask,
+                        box, width: int, height: int,
+                        max_tokens: int) -> CrossTokens:
+    """fg/bg anchor token sampling (train.py:436-513; JAX step.py:121).
+
+    ``box`` = (min_y, max_y, min_x, max_x) of the sampled patch, a (4,)
+    int tensor.  Anchors projecting inside the patch are split by the
+    object mask into fg and bg candidates; the ``min(n_fg, n_bg,
+    max_tokens)`` of each with the highest ``priorities`` are the valid
+    tokens.  The slots past that count (``*_valid`` False) are the next
+    by priority, and where candidates run out, entries at ``-inf`` in an
+    order ``torch.topk`` and ``lax.top_k`` may break differently; no
+    valid output depends on them (masked out of both softmaxes, never
+    written back)."""
+    xi = pos_x.to(torch.int32)
+    yi = pos_y.to(torch.int32)
+    valid2d = ((pos_x > 0) & (pos_x < width) & (pos_y > 0)
+               & (pos_y < height) & visible & alive)
+    xi = torch.clamp(xi, 0, width - 1)
+    yi = torch.clamp(yi, 0, height - 1)
+    min_y, max_y, min_x, max_x = box[0], box[1], box[2], box[3]
+    in_box = ((yi >= min_y) & (yi < max_y) & (xi >= min_x) & (xi < max_x)
+              & valid2d)
+    fgbg = gt_mask[yi.long(), xi.long()] > 0.5
+    fg_cand = in_box & fgbg
+    bg_cand = in_box & ~fgbg
+    n_fg = torch.sum(fg_cand.to(torch.int32))
+    n_bg = torch.sum(bg_cand.to(torch.int32))
+    min_num = torch.clamp_max(torch.minimum(n_fg, n_bg), max_tokens)
+    ok = (n_fg > 11) & (n_bg > 11)   # the reference exits below 12 anchors
+    rank = torch.arange(max_tokens, device=pos_x.device)
+
+    def draw(u, cand):
+        pri = torch.where(cand, u, -torch.inf)
+        idx = torch.topk(pri, max_tokens).indices
+        return idx.to(torch.int32), rank < min_num
+
+    fg_idx, fg_valid = draw(priorities[0], fg_cand)
+    bg_idx, bg_valid = draw(priorities[1], bg_cand)
+    return CrossTokens(fg_idx, bg_idx, fg_valid, bg_valid, ok)
+
+
+def crossattn_update(ca, feat, tok: CrossTokens, ema: float, is_ref: bool,
+                     heads: int, dim_head: int):
+    """run_crossattn (gaussian_model.py:553-583; JAX step.py:91).
+
+    The anchor features are detached before attention; the attention
+    outputs are EMA-mixed back at the valid sampled slots — the
+    foreground side only on the reference view — and the result carries
+    gradients to the cross-attention arrays ``ca`` only.  Nothing is
+    written when ``tok.ok`` is False.  The writes go through one extra
+    row, ``C``, that takes every dropped slot and is cut off after."""
+    base = feat.detach()
+    C = base.shape[0]
+    fg_tok = base[tok.fg_idx.long()]
+    bg_tok = base[tok.bg_idx.long()]
+    fg_out, bg_out = bidirectional_attn(ca, fg_tok, bg_tok, heads, dim_head,
+                                        mask=tok.fg_valid,
+                                        context_mask=tok.bg_valid)
+    drop = torch.tensor(C, dtype=torch.int64, device=base.device)
+    new_feat = torch.cat([base, base.new_zeros((1, base.shape[1]))])
+    if is_ref:       # fg written only under the reference view (:576-579)
+        fg_mix = ema * fg_out + (1 - ema) * fg_tok
+        fg_dst = torch.where(tok.fg_valid & tok.ok, tok.fg_idx.long(), drop)
+        new_feat = new_feat.index_copy(0, fg_dst, fg_mix)
+    bg_mix = ema * bg_out + (1 - ema) * bg_tok
+    bg_dst = torch.where(tok.bg_valid & tok.ok, tok.bg_idx.long(), drop)
+    new_feat = new_feat.index_copy(0, bg_dst, bg_mix)
+    return new_feat[:C]
 
 
 def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
@@ -139,6 +246,22 @@ def phase1_masks(feat_frozen: bool):
     }
 
 
+def phase2_masks(cross_ok: bool):
+    """Which groups the main Adam updates in phase 2 (step.py:292-307):
+    a step whose token sampling degenerated (``cross_ok`` False) is
+    skipped whole by the reference (train.py:519-523), so every group is
+    masked on it; the anchor features belong to the cross-attention (the
+    EMA write) and the cross-attention to its own Adam."""
+    ok = bool(cross_ok)
+    return {
+        "params/anchor": ok, "params/offset": ok, "params/feat": False,
+        "params/scaling": ok, "params/rotation": False,
+        "params/opacity": False, "params/uncertainty": False,
+        "mlps/opacity": ok, "mlps/uncertainty": ok, "mlps/cov": ok,
+        "mlps/color": ok, "mlps/crossattn": False, "mlps/feat_bank": ok,
+    }
+
+
 def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                midas_depth, fg_box_mask, cross_box=None, *,
                cfg: ScaffoldConfig, opt: OptimConfig, is_ref: bool,
@@ -147,16 +270,15 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                spatial_lr_scale: float = 1.0, feat_frozen: bool = False):
     """One optimization iteration.  Returns (new_state, StepAux); the
     parameters and moments are updated in place, so ``ts`` itself holds
-    the new values too.
+    the new values too — except when ``aux.packed`` shows an instance
+    demand above ``capacity`` or a loss that is not finite: then nothing
+    is written (module docstring) and ``ts`` comes back as it was.
 
     gt_image (3,H,W) · gt_mask (1,H,W) · midas_depth (1,H,W) ·
     fg_box_mask (H,W) random box for the ref-view fg depth term ·
-    cross_box (4,) the phase-2 patch (unused in phase 1).
+    cross_box (4,) int32 patch for the phase-2 token sampling (zeros
+    when None).
     """
-    if use_crossattn:
-        raise NotImplementedError(
-            "phase-2 cross-attention (crossattn_update, "
-            "sample_cross_tokens) is not ported yet")
     if (camera.width, camera.height) != (width, height):
         raise ValueError(f"camera is {camera.width}x{camera.height}, the "
                          f"step was asked for {width}x{height}")
@@ -166,7 +288,7 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     step1 = ts.step + 1
     p = scaffold.params
 
-    # --- prefilter: anchor visibility (densification statistics) -------
+    # --- prefilter: anchor visibility + projected positions ------------
     with record_function("step/prefilter"), torch.no_grad():
         pre = preprocess(
             p.anchor, torch.exp(p.scaling[:, :3]),
@@ -177,10 +299,40 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
             active_mask=scaffold.alive)
         anchor_visible = (pre.radius > 0) & scaffold.alive
 
-    masks = phase1_masks(feat_frozen)
+    cross = None
+    if use_crossattn:
+        with record_function("step/tokens"), torch.no_grad():
+            if cross_box is None:
+                cross_box = torch.zeros(4, dtype=torch.int32, device=dev)
+            # a step that writes nothing hands the generator back as it
+            # found it, so that its re-run draws the same tokens
+            gen_state = ts.generator.get_state()
+            n_tok = min(opt.crossattn_max_tokens, C)
+            cross = sample_cross_tokens(
+                token_priorities(ts, C), pre.mean2d[:, 0], pre.mean2d[:, 1],
+                pre.radius > 0, scaffold.alive, gt_mask[0], cross_box,
+                width, height, n_tok)
+        grad_masks = dict(phase2_masks(True), **{"mlps/crossattn": True})
+    else:
+        grad_masks = phase1_masks(feat_frozen)
     g = loss_and_grads(scaffold, camera, gt_image, gt_mask, midas_depth,
                        fg_box_mask, cfg=cfg, opt=opt, is_ref=is_ref,
-                       capacity=capacity, masks=masks, white_bg=white_bg)
+                       capacity=capacity, masks=grad_masks,
+                       white_bg=white_bg, cross=cross)
+
+    with torch.no_grad():
+        aux = pack_aux(g.loss.detach(), g.l1.detach(),
+                       overflow_demand(g.binning),
+                       torch.sum(g.dec.active.to(torch.int32)),
+                       cross.ok if cross is not None else
+                       torch.zeros((), dtype=torch.bool, device=dev))
+    loss, _, demand, _, cross_ok = aux.packed.tolist()
+    if demand > capacity or not math.isfinite(loss):
+        # the instance list was truncated (or the loss is garbage): write
+        # nothing; the caller re-runs at a larger capacity (or stops)
+        if cross is not None:
+            ts.generator.set_state(gen_state)
+        return ts, aux
 
     # --- densification stats (training_statis, train.py:599) ------------
     stats = ts.stats
@@ -196,16 +348,36 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                                      grad_norm, gauss_valid, anchor_visible)
 
     # --- masked Adam, in place ------------------------------------------
+    # ``cross_ok`` is a device value in JAX, where it gates the groups
+    # with ``where``; here it came to the host in ``aux.packed`` and
+    # gates them as Python flags.  A step with cross_ok False changes no
+    # parameter and no moment (and still advances ``step``).
+    masks = phase2_masks(cross_ok) if use_crossattn else phase1_masks(
+        feat_frozen)
+    lrs = lr_tree(step1, opt, spatial_lr_scale)
+    params = named_params(scaffold)
+    step_c1 = ts.step_c
     with record_function("step/adam"):
-        apply_adam(named_params(scaffold), g.grads, ts.m, ts.v,
-                   lr_tree(step1, opt, spatial_lr_scale), step1, masks)
-
-    with torch.no_grad():
-        aux = pack_aux(g.loss.detach(), g.l1.detach(),
-                       overflow_demand(g.binning),
-                       torch.sum(g.dec.active.to(torch.int32)),
-                       torch.zeros((), dtype=torch.bool, device=dev))
-    return ts._replace(step=step1, stats=stats), aux
+        apply_adam(params, g.grads, ts.m, ts.v, lrs, step1, masks)
+        if use_crossattn:
+            # JAX's masked Adam returns a masked leaf's passed-in value,
+            # and the value it is passed for params/feat is
+            # stop_gradient(feat_used) (step.py:317-318): the EMA-mixed
+            # features are written back into the state.  The in-place
+            # Adam skips masked groups, so the write is made here.
+            with torch.no_grad():
+                p.feat.copy_(g.feat)
+            if cross_ok:
+                # the cross-attention's own Adam (optimizer_c,
+                # train.py:614-616): its own step count, run only on
+                # steps where the attention ran, at the main step's
+                # learning rate
+                step_c1 = ts.step_c + 1
+                ca = {n: t for n, t in params.items()
+                      if group_of(n) == "mlps/crossattn"}
+                apply_adam(ca, g.grads, ts.m, ts.v, lrs, max(step_c1, 1),
+                           {"mlps/crossattn": True})
+    return ts._replace(step=step1, step_c=step_c1, stats=stats), aux
 
 
 class StepGrads(NamedTuple):
@@ -217,33 +389,54 @@ class StepGrads(NamedTuple):
     dec: Decoded
     splats: Splats
     binning: Binning
+    feat: Optional[torch.Tensor] = None  # phase 2: the features rendered
+                                         # (EMA-mixed), detached
 
 
 def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
                    gt_mask, midas_depth, fg_box_mask, *, cfg: ScaffoldConfig,
                    opt: OptimConfig, is_ref: bool, capacity: int, masks,
-                   white_bg: bool = False) -> StepGrads:
-    """The phase-1 loss of one view and its gradients with respect to the
+                   white_bg: bool = False,
+                   cross: Optional[CrossTokens] = None) -> StepGrads:
+    """The loss of one view and its gradients with respect to the
     parameters of every group that ``masks`` updates and to the projected
-    means (``value_and_grad`` of ``loss_fn``, step.py:255-274)."""
+    means (``value_and_grad`` of ``loss_fn``, step.py:255-274).  With
+    ``cross`` (phase 2) the features are first EMA-mixed by the
+    cross-attention, whose arrays enter autograd as leaves of their own,
+    as the anchor tensors do."""
     dev = scaffold.alive.device
     bg = (torch.ones(3, device=dev) if white_bg
           else torch.zeros(3, device=dev))
     p = scaffold.params
     anchor = type(p)(*(t.detach().requires_grad_() for t in p))
+    ca, feat_used, render_params = {}, None, anchor
+    if cross is not None:
+        ca = {name: t.detach().requires_grad_()
+              for name, t in scaffold.mlps.crossattn.arrays()}
+        with record_function("step/crossattn"):
+            feat_used = crossattn_update(
+                ca, anchor.feat, cross, opt.crossattn_feat_update_ema,
+                is_ref, cfg.attn_heads, cfg.attn_head_dim)
+        render_params = anchor._replace(feat=feat_used)
     screen_zero = torch.zeros((cfg.capacity * cfg.n_offsets, 2),
                               device=dev, requires_grad=True)
     out, dec, splats, binning = render_from_params(
-        anchor, scaffold.mlps, scaffold, camera, bg, screen_zero, cfg,
+        render_params, scaffold.mlps, scaffold, camera, bg, screen_zero, cfg,
         capacity)
     with record_function("step/losses"):
         loss, l1 = loss_terms(out, gt_image, gt_mask, midas_depth,
                               fg_box_mask, opt, is_ref)
-    # the autograd leaves: the fresh anchor tensors and the MLP weights
-    leaves = {name: (getattr(anchor, name[len("params/"):])
-                     if name.startswith("params/") else t)
-              for name, t in named_params(scaffold).items()
-              if masks[group_of(name)]}
+    # the autograd leaves: the fresh anchor and cross-attention tensors
+    # and the MLP weights
+    leaves = {}
+    for name, t in named_params(scaffold).items():
+        if not masks[group_of(name)]:
+            continue
+        if name.startswith("params/"):
+            t = getattr(anchor, name[len("params/"):])
+        elif name.startswith("mlps/crossattn/"):
+            t = ca[name[len("mlps/crossattn/"):]]
+        leaves[name] = t
     with record_function("step/backward"):
         grads = torch.autograd.grad(
             loss, list(leaves.values()) + [screen_zero], allow_unused=True)
@@ -251,4 +444,5 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
         loss=loss, l1=l1, screen=grads[-1], dec=dec, splats=splats,
         binning=binning,
         grads={name: torch.zeros_like(t) if g is None else g
-               for (name, t), g in zip(leaves.items(), grads[:-1])})
+               for (name, t), g in zip(leaves.items(), grads[:-1])},
+        feat=None if feat_used is None else feat_used.detach())

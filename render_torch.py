@@ -4,10 +4,14 @@ directory and render its splits on the GPU.
     python render_torch.py --model_path output/scene --source_path data/scene \
         [--iteration 30000] [--skip_train] [--skip_test] \
         [--instance_capacity N]
+    python render_torch.py --model_path output/synthetic --synthetic
 
 The counterpart of ``render.py``: it reads ``<model>/cfg.json`` and
 ``<model>/point_cloud/iteration_<N>/{point_cloud.ply, mlp_checkpoints.npz}``
-(written by either package) and the scene's cameras, and writes render
+(written by either package) and the scene's cameras (with
+``--synthetic``, the scene ``train_torch.py --synthetic`` recorded in
+``<model>/synthetic.json``: its first two views are the test split), and
+writes render
 sets under ``<model>/<split>/`` (renders/gt/errors/depth,
 per_view_count.json), printing each split's FPS.  A view whose instance
 demand exceeds ``--instance_capacity`` is rendered truncated, with a
@@ -23,7 +27,9 @@ import sys
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model_path", required=True)
-    p.add_argument("--source_path", required=True)
+    p.add_argument("--source_path", default="")
+    p.add_argument("--synthetic", action="store_true",
+                   help="the synthetic scene train_torch.py trained on")
     p.add_argument("--iteration", type=int, default=-1,
                    help="-1 = highest iteration_<N> dir present")
     p.add_argument("--resolution", type=int, default=-1)
@@ -41,6 +47,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if not (args.source_path or args.synthetic):
+        raise SystemExit("render_torch.py: give --source_path or "
+                         "--synthetic")
     if args.spiral or args.eval:
         raise SystemExit("render_torch.py: --spiral and --eval are not yet "
                          "ported; use render.py for them")
@@ -52,13 +61,22 @@ def main(argv=None):
     dev = resolve_device(args.device)
     scaffold, cfg, it = load_trained_scaffold(args.model_path,
                                               args.iteration, dev)
-    sd = load_spinnerf_scene(args.source_path, resolution=args.resolution,
-                             device=dev)
+    if args.synthetic:
+        import json
+        import os
+        from gscream_tpu_torch.data.synthetic import make_scene
+        with open(os.path.join(args.model_path, "synthetic.json")) as f:
+            views = make_scene(device=dev, **json.load(f)).views
+        test_views, train_views = views[:2], views
+    else:
+        sd = load_spinnerf_scene(args.source_path,
+                                 resolution=args.resolution, device=dev)
+        test_views, train_views = sd.test_views, sd.train_views
     splits = []
     if not args.skip_test:
-        splits.append(("test", sd.test_views))
+        splits.append(("test", test_views))
     if not args.skip_train:
-        splits.append(("train", sd.train_views))
+        splits.append(("train", train_views))
     for name, views in splits:
         if not views:
             continue

@@ -7,6 +7,7 @@ every kernel wrapper takes its plain PyTorch version.
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 TW = TH = 32
@@ -124,3 +125,16 @@ def scaffold_numpy(seed, n_points, cfg_kwargs):
     np_mlps["crossattn"] = [np.asarray(a) for a in mlps["crossattn"][:8]]
     np_params = {f: np.asarray(getattr(p, f)) for f in p._fields}
     return cfg, st, np_params, np_mlps, np.asarray(st.alive)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for the module's PyTorch work, restored after.
+    The test workers share the machine's cores; two processes whose
+    PyTorch each spins a thread per core slow the port's many small CPU
+    ops down some thirtyfold, where two threads each cost nothing alone
+    (a module imports this fixture to use it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

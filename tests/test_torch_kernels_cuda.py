@@ -17,7 +17,10 @@ On those scenes and on records planted at the edge of the cull (peak α
 just above and below 1/255 over a 16×8 block, the vertex inside the
 block, beside it or far off the tile, wide and narrow gaussians), K1 and
 K2 equal their builds with -DGS_NO_CULL bit for bit: the cull changes
-no output.
+no output.  One phase-2 ``train_step`` and one ``adjust_anchors`` on the
+card match the same calls on the CPU from the same state and draws
+(counts, ``alive``, anchors and integer statistics bit-equal, floats
+within ``tests/test_torch_train_step.py``'s tolerance).
 
 These need a CUDA card and ``nvcc``; without one they skip.  This file
 imports neither JAX nor the JAX package, so on a machine with a card it
@@ -609,3 +612,115 @@ def test_segment_reduce_rows_bit_equal(dev, monkeypatch):
     offs = torch.tensor([0, 3, 3, 700, 1500], dtype=torch.int32, device=dev)
     assert torch.equal(rt.segment_reduce_rows(odd, offs),
                        rt.segment_reduce_rows_plain(odd, offs))
+
+
+def _close_to_cpu(got, ref, name, atol=5e-3, rtol=2e-2, flip_rel=5e-2,
+                  flip_share=5e-3):
+    """``tests/test_torch_train_step.py``'s tolerance: within ``atol·scale
+    + rtol·|ref|`` (scale = max |ref|) except ≤ 0.5% of the elements,
+    which must lie within ``flip_rel·scale``."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all()), name
+    if ref.numel() == 0:
+        return
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = (got - ref).abs()
+    bad = err > atol * scale + rtol * ref.abs()
+    assert int(bad.sum()) <= max(2, flip_share * ref.numel()), name
+    assert float(err.max()) <= flip_rel * scale, name
+
+
+def _training_state(device, seed=81):
+    """A seeded port state (200 anchors of capacity 256, feat_dim 8, 2
+    offsets, random features, offsets and statistics that densify)."""
+    from gscream_tpu_torch.model.scaffold import ScaffoldConfig, \
+        init_scaffold
+    from gscream_tpu_torch.train.state import init_train_state
+    cfg = ScaffoldConfig(feat_dim=8, n_offsets=2, voxel_size=0.01,
+                         capacity=256)
+    rng = np.random.default_rng(seed)
+    st = init_scaffold(rng.normal(0, 0.6, (200, 3)).astype(np.float32), cfg,
+                       torch.Generator().manual_seed(seed), device=device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    C, k = cfg.capacity, cfg.n_offsets
+    st = st._replace(params=st.params._replace(
+        feat=t(rng.normal(0, 0.3, (C, 8))),
+        offset=t(rng.normal(0, 0.5, (C, k, 3)))))
+    ts = init_train_state(st, cfg)
+    denom = rng.integers(0, 100, (C, k))
+    ts = ts._replace(stats=ts.stats._replace(
+        offset_denom=t(denom),
+        offset_grad_accum=t(denom * 10.0 ** rng.uniform(-5, -2.5, (C, k))),
+        anchor_demon=t(rng.integers(0, 100, (C, 1))),
+        opacity_accum=t(rng.uniform(0, 30, (C, 1)))))
+    return cfg, ts
+
+
+def test_phase2_step_and_densify_match_cpu(dev, monkeypatch):
+    """One phase-2 ``train_step`` (reference view, tokens sampled) and one
+    ``adjust_anchors`` on the card against the same calls on the CPU,
+    from the same state and the same draws: counts, ``cross_ok``,
+    ``alive``, the anchors and the integer statistics bit-equal; the
+    loss at rtol 1e-5; moments, parameters and the other statistics
+    within ``train_step``'s tolerance."""
+    from gscream_tpu_torch.cameras import make_camera
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.model import densify
+    from gscream_tpu_torch.train import step as port_step
+    from gscream_tpu_torch.train.state import named_params
+    w, h = 160, 96
+    rng = np.random.default_rng(82)
+    gt = rng.uniform(0.2, 0.8, (3, h, w)).astype(np.float32)
+    mask = np.zeros((1, h, w), np.float32)
+    mask[:, h // 4:3 * h // 4, w // 3:2 * w // 3] = 1.0
+    midas = (0.1 + 0.8 * np.linspace(0, 1, w, dtype=np.float32)[None, None]
+             + 0.02 * rng.normal(size=(1, h, w))).astype(np.float32)
+    fg = np.zeros((h, w), np.float32)
+    fg[h // 8:7 * h // 8, w // 4:3 * w // 4] = 1.0
+    pri = (rng.uniform(size=256), rng.uniform(size=256))
+    keep = [rng.uniform(size=512) for _ in range(3)]
+    out = []
+    for device in ("cpu", dev):
+        def t(x, dt=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+        monkeypatch.setattr(port_step, "token_priorities",
+                            lambda ts, n: (t(pri[0]), t(pri[1])))
+        monkeypatch.setattr(densify, "keep_draw",
+                            lambda gen, n, level, d: t(keep[level]))
+        cfg, ts = _training_state(device)
+        dens = densify.adjust_anchors(ts.scaffold, ts.stats, ts.m, ts.v,
+                                      None, cfg, check_interval=100)
+        cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 1.0,
+                          1.0 * h / w, w, h, device=device)
+        ts1, aux = port_step.train_step(
+            ts, cam, t(gt), t(mask), t(midas), t(fg),
+            t([0, h, 0, w], torch.int32), cfg=cfg, opt=OptimConfig(),
+            is_ref=True, use_crossattn=True, capacity=1 << 14, width=w,
+            height=h, accumulate=True)
+        out.append((ts1, aux, dens))
+    (c_ts, c_aux, c_dens), (g_ts, g_aux, g_dens) = out
+    assert bool(c_aux.cross_ok) and bool(g_aux.cross_ok)
+    assert g_aux.packed[2:].tolist() == c_aux.packed[2:].tolist()
+    np.testing.assert_allclose(g_aux.packed[:2].numpy(),
+                               c_aux.packed[:2].numpy(), rtol=1e-5)
+    assert g_ts.step == c_ts.step == 1 and g_ts.step_c == c_ts.step_c == 1
+    for f in ("anchor_demon", "offset_denom"):
+        assert torch.equal(getattr(g_ts.stats, f).cpu(),
+                           getattr(c_ts.stats, f)), f
+    _close_to_cpu(g_ts.stats.offset_grad_accum, c_ts.stats.offset_grad_accum,
+                  "offset_grad_accum")
+    pg, pc = named_params(g_ts.scaffold), named_params(c_ts.scaffold)
+    for name in pc:
+        _close_to_cpu(g_ts.m[name], c_ts.m[name], f"m {name}")
+        _close_to_cpu(g_ts.v[name], c_ts.v[name], f"v {name}")
+        _close_to_cpu(pg[name], pc[name], name)
+    (gsc, gst, gm, gv), (csc, cst, cm, cv) = g_dens, c_dens
+    assert torch.equal(gsc.alive.cpu(), csc.alive)
+    assert int((csc.alive & ~c_ts.scaffold.alive).sum()) > 0
+    assert torch.equal(gsc.params.anchor.cpu(), csc.params.anchor)
+    for f, x, y in zip(gst._fields, gst, cst):
+        assert torch.equal(x.cpu(), y), f
+    for f, x, y in zip(gsc.params._fields, gsc.params, csc.params):
+        _close_to_cpu(x, y, f, atol=1e-6, rtol=1e-6)
