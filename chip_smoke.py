@@ -60,11 +60,31 @@ catches its own failure):
     route's (XLA emission + cm; ``scatter`` and ``sort`` run the same
     reorder as ``gather``), then ``N_PALLAS_STEPS`` ``train_step`` calls
     over views 0-3 in which K1, K2, K7, K8, K9a and K9b launch once per
-    step and K3, K4, K5 and K6 never; the environment is restored after.
+    step and K3, K4, K5 and K6 never; the environment is restored after;
+(f) the training loop: ``train_scene`` for 48 iterations on the same
+    model and targets (compressed schedule: densifications, phase 2, a
+    checkpoint), a second run resumed from the checkpoint bit-equal, the
+    costs of densification and checkpoints, one phase-2 step profiled;
+(g) evaluation and the spiral split at full width on the model (f)
+    trained: the test split (views 4-9, teacher targets, the central
+    box as mask) through ``render_set`` with K1, K5 and K6 counted,
+    scored by ``evaluate_pairs`` on the card with seeded random LPIPS
+    weights (every key of JAX's ``results.json``/``per_view.json``), the
+    same renders scored on the CPU within stated tolerances, one view
+    rendered through the plain twins scored within a stated tolerance,
+    the card's ms per view per metric; ``N_SPIRAL`` ``get_spiral`` poses
+    through ``render_set(..., "spiral")`` (renders, inferno depths,
+    normal maps, a video; the PNG-in-AVI fallback's ``N_SPIRAL`` frames
+    each bit-equal to its render), one frame's normals on the card
+    bit-equal to the CPU's; then ``train_torch.py --synthetic`` at
+    128x128 with the evaluation callback and evaluation, and
+    ``render_torch.py --eval`` and ``evaluate_torch.py`` on what it
+    wrote.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), the others from phase (d), with the
-render path's and each training route's launch counts and the render
+render path's, each training route's, the loop's and phase (g)'s
+launch counts (``launches_eval``, ``launches_spiral``) and the render
 path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
 profiler's device time and launches per call; K1's and K2's lines also
 carry the tile-count
@@ -113,6 +133,30 @@ LOOP_CHECKPOINT = 24
 LOOP_OPTIM = dict(iterations=LOOP_ITERS, start_stat=2, update_from=4,
                   update_interval=12, update_until=LOOP_ITERS,
                   start_crossattn_from=LOOP_CHECKPOINT)
+# phase (g): the spiral's poses, the views scored again on the CPU (VGG16
+# at 1297x840 takes seconds there), and the keys JAX's results.json and
+# per_view.json carry with LPIPS weights and masks
+N_SPIRAL = 12
+EVAL_CPU_VIEWS = 2
+RESULT_KEYS = ("PSNR", "SSIM", "LPIPS", "PSNR_masked", "SSIM_masked",
+               "LPIPS_masked")
+SMOKE_DIR = "smoke_out"     # git-ignored: the random LPIPS weights
+# phase (g) tolerances.  The card's scores against the CPU's on the same
+# render: the means run in other orders and cuDNN's convolutions sum
+# otherwise than the CPU's (TF32 off on both), so PSNR within 1e-4 dB,
+# SSIM within 1e-6, LPIPS within 1e-4 relative
+EVAL_PSNR_ATOL = 1e-4
+EVAL_SSIM_ATOL = 1e-6
+EVAL_LPIPS_RTOL = 1e-4
+# the render through the plain twins against the kernels' render, both
+# scored on the card: the images agree to ATOL except where a T < 1e-4
+# stop moves by one instance, whose weight is below 1e-4
+PLAIN_PSNR_ATOL = 1e-2
+PLAIN_SSIM_ATOL = 1e-4
+PLAIN_LPIPS_RTOL = 1e-3
+# normals on the card against the same function on the CPU: bit-equal
+# (every step is elementwise, the solve a float64 closed form), so the
+# flip fraction allowed is 0
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
 # bandwidth and non-tensor float32 throughput (132 SMs x 128 lanes x 2 per
 # FMA at 1.98 GHz)
@@ -1860,7 +1904,8 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
     instance capacity below the demand; then a second run restored from
     the checkpoint at LOOP_CHECKPOINT, which must end bit-equal; then the
     costs of densification, checkpoints and one phase-2 step.  Returns
-    each kernel's launches over the first run."""
+    each kernel's launches over the first run and that run's final
+    ``TrainState``."""
     import shutil
     import torch
     from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
@@ -2033,8 +2078,340 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
     for dev_ms, calls, name in kernels[:10]:
         log(f"  {dev_ms:9.4f} ms  x{calls:<3d} {name[:90]}")
     log(f"phase (f) took {time.perf_counter() - t_start:.1f} s")
+    return launches, ts_a
+
+
+
+# ---------------------------------------------------------------------------
+# phase (g): evaluation and the spiral split
+
+def random_lpips_weights(path, seed=11):
+    """Seeded random LPIPS weights in the export ``.npz`` format
+    (``tests/test_lpips_parity.py``'s draw): the metric's pipeline runs,
+    but its values are not the published LPIPS."""
+    from gscream_tpu_torch.metrics.lpips import _TAP_AFTER, _VGG_PLAN
+    rng = np.random.default_rng(seed)
+    out, cin = {}, 3
+    for i, (cout, _) in enumerate(_VGG_PLAN):
+        out[f"conv{i}_w"] = rng.normal(
+            0, 0.1 / np.sqrt(cin * 9), (cout, cin, 3, 3)).astype(np.float32)
+        out[f"conv{i}_b"] = rng.normal(0, 0.05, (cout,)).astype(np.float32)
+        cin = cout
+    for j, tap in enumerate(_TAP_AFTER):
+        out[f"lin{j}_w"] = np.abs(
+            rng.normal(0, 0.01, (_VGG_PLAN[tap][0],))).astype(np.float32)
+    np.savez(path, **out)
+
+
+OPTIONAL = ("cv2", "imageio", "matplotlib", "PIL", "tensorboard", "wandb")
+
+
+def importable(name):
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
+def check_scores(got, ref, psnr_atol, ssim_atol, lpips_rtol, label):
+    """Two ``per_view`` rows within the stated tolerances, key for key;
+    returns the largest differences."""
+    require(set(got) == set(ref), f"{label}: keys {sorted(got)} != "
+            f"{sorted(ref)}")
+    worst = {}
+    for k in ref:
+        d = abs(got[k] - ref[k])
+        if k.startswith("LPIPS"):
+            d /= max(abs(ref[k]), 1e-12)
+            tol = lpips_rtol
+        else:
+            tol = psnr_atol if k.startswith("PSNR") else ssim_atol
+        require(d <= tol, f"{label}: {k} {got[k]!r} against {ref[k]!r} "
+                f"(difference {d:.3e} > {tol:.1e})")
+        worst[k] = d
+    return worst
+
+
+def avi_frame_count(path):
+    """The frame count of an AVI's main header and its ``00dc`` chunks."""
+    import struct
+    from gscream_tpu_torch.utils.video import avi_frames
+    with open(path, "rb") as f:
+        head = f.read(64)
+    at = head.index(b"avih") + 8
+    return struct.unpack("<I", head[at + 16:at + 20])[0], len(
+        avi_frames(path))
+
+
+def eval_phase(dev, cfg, ts, cams):
+    """Phase (g): the test split (views N_TRAIN_VIEWS..N_VIEWS-1) of the
+    model phase (f) trained, rendered by ``render_set`` and scored by
+    ``evaluate_pairs`` on the card with seeded random LPIPS weights,
+    against the CPU on the same renders and against a render through the
+    plain twins; the spiral split over N_SPIRAL poses; the CLIs at a small
+    size.  Returns each kernel's launches over the test render and over
+    the spiral render."""
+    from gscream_tpu_torch.train.loop import capacity_tier
+    t_start = time.perf_counter()
+    scaffold = ts.scaffold
+    test_cams = cams[N_TRAIN_VIEWS:]
+    n_test = len(test_cams)
+    targets = training_targets(dev, cfg, test_cams)
+    gts = [t[0].cpu().numpy() for t in targets]
+    masks = [t[1].cpu().numpy() for t in targets]
+    names = [f"{i:05d}" for i in range(n_test)]
+    capacity = capacity_tier(max(instance_demand(scaffold, cfg, c)
+                                 for c in test_cams))
+    counters = launch_counters()
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, SMOKE_DIR), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, SMOKE_DIR)) \
+            as tmp:
+        weights = os.path.join(tmp, "lpips_random.npz")
+        random_lpips_weights(weights)
+        with environ(GSCREAM_LPIPS_WEIGHTS=weights):
+            log(f"LPIPS runs on seeded RANDOM weights ({weights}): its "
+                "values exercise the metric's pipeline, they are not the "
+                "published LPIPS; optional packages that import here: "
+                f"{[m for m in OPTIONAL if importable(m)]} of {OPTIONAL}")
+            launches = eval_test_split(dev, cfg, scaffold, test_cams, gts,
+                                       masks, names, capacity, counters, tmp)
+            launches_spiral = eval_spiral(dev, cfg, scaffold, cams,
+                                          counters, tmp)
+
+            eval_clis(dev, tmp)
+    log(f"phase (g) took {time.perf_counter() - t_start:.1f} s")
+    return launches, launches_spiral
+
+
+def eval_clis(dev, tmp):
+    """Phase (g)'s CLIs at a small size on the card: ``train_torch.py
+    --synthetic`` at 128x128 with the evaluation callback at 10 and 20
+    and the final evaluation, then ``render_torch.py --eval`` and
+    ``evaluate_torch.py`` on the model directory it wrote."""
+    import evaluate_torch
+    import render_torch
+    import train_torch
+    t0 = time.perf_counter()
+    model = os.path.join(tmp, "cli")
+    on = ["--device", str(dev)]
+    train_torch.main(["--synthetic", "--synthetic_size", "128",
+                      "--iterations", "20", "--test_iterations", "10", "20",
+                      "--model_path", model] + on)
+    with open(os.path.join(model, "results.json")) as f:
+        summary = json.load(f)["ours"]
+    require(set(summary) == set(RESULT_KEYS) and all(
+        math.isfinite(v) for v in summary.values()),
+        f"train_torch.py results.json: {summary}")
+    with open(os.path.join(model, "metrics.jsonl")) as f:
+        fired = [r["step"] for r in map(json.loads, f) if "test_psnr" in r]
+    require(fired == [10, 20], f"the evaluation callback fired at {fired}, "
+            "not at 10 and 20")
+    render_torch.main(["--model_path", model, "--synthetic", "--eval"] + on)
+    evaluate_torch.main(["--model_path", model] + on)
+    with open(os.path.join(model, "test", "results.json")) as f:
+        again = json.load(f)["ours"]
+    require(set(again) == {"PSNR", "SSIM", "LPIPS"} and all(
+        math.isfinite(v) for v in again.values()),
+        f"evaluate_torch.py results.json: {again}")
+    log(f"CLIs on the card: train_torch.py --synthetic (128x128, 20 "
+        f"iterations, the evaluation callback at {fired}) wrote results.json "
+        f"{summary}; render_torch.py --eval and evaluate_torch.py on the "
+        f"model directory wrote {again} (from the 8-bit PNGs, no masks); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def eval_test_split(dev, cfg, scaffold, test_cams, gts, masks, names,
+                    capacity, counters, tmp):
+    """Phase (g)'s test split: rendered with K1, K5 and K6 counted, scored
+    on the card, on the CPU and through the plain twins, each metric
+    timed.  Returns the launches over the render."""
+    import torch
+    from gscream_tpu_torch.metrics.lpips import lpips
+    from gscream_tpu_torch.ops.losses import psnr
+    from gscream_tpu_torch.ops.ssim import my_ssim
+    from gscream_tpu_torch.train.evaluate import evaluate_pairs, \
+        write_results
+    from gscream_tpu_torch.train.render_sets import make_render_fn, \
+        render_set
+    n_test = len(test_cams)
+    for fn in counters.values():
+        fn.launches = 0
+    sync()
+    res = render_set(tmp, "test", test_cams, scaffold, cfg,
+                     capacity=capacity, gt_images=gts)
+    sync()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"test split: {n_test} views at {WIDTH}x{HEIGHT}, FPS "
+        f"{res['fps']:.2f}, instance demand {res['overflow_demand']} "
+        f"(capacity {capacity}); launches {launches} [{SMI}]")
+    for name in ("tile_forward", "expand_gauss_rows", "expand_rows"):
+        require(launches[name] == n_test, f"kernel {name} launched "
+                f"{launches[name]} times over {n_test} test renders")
+    for d in res["overflow_demand"]:
+        require(d <= capacity, f"overflow: demand {d} > capacity {capacity}")
+    for img in res["renders"]:
+        require(img.shape == (3, HEIGHT, WIDTH) and np.isfinite(img).all(),
+                "a test render is not a finite (3, H, W) image")
+
+    # scored on the card; the files carry every key JAX writes
+    sync()
+    t0 = time.perf_counter()
+    card = evaluate_pairs(res["renders"], gts, masks, names, device=dev)
+    card_s = time.perf_counter() - t0
+    write_results(tmp, card)
+    with open(os.path.join(tmp, "results.json")) as f:
+        summary = json.load(f)["ours"]
+    with open(os.path.join(tmp, "per_view.json")) as f:
+        per_view = json.load(f)["ours"]
+    require(set(summary) == set(RESULT_KEYS), f"results.json keys "
+            f"{sorted(summary)}")
+    require(sorted(per_view) == names and all(
+        set(r) == set(RESULT_KEYS) for r in per_view.values()),
+        f"per_view.json: {per_view}")
+    require(all(math.isfinite(v) for r in per_view.values()
+                for v in r.values()), f"a score is not finite: {per_view}")
+    log(f"evaluate_pairs on the card over {n_test} views in {card_s:.2f} s "
+        f"(first calls included): {summary} [{SMI}]")
+
+    # the same renders scored on the CPU
+    cpu = evaluate_pairs(res["renders"][:EVAL_CPU_VIEWS],
+                         gts[:EVAL_CPU_VIEWS], masks[:EVAL_CPU_VIEWS],
+                         names[:EVAL_CPU_VIEWS], device="cpu")
+    for name in names[:EVAL_CPU_VIEWS]:
+        worst = check_scores(card["per_view"][name], cpu["per_view"][name],
+                             EVAL_PSNR_ATOL, EVAL_SSIM_ATOL,
+                             EVAL_LPIPS_RTOL, f"view {name} card vs CPU")
+        log(f"view {name}: card scores equal the CPU's on the same render "
+            f"(PSNR within {EVAL_PSNR_ATOL} dB, SSIM within "
+            f"{EVAL_SSIM_ATOL}, LPIPS within rtol {EVAL_LPIPS_RTOL}); "
+            f"largest differences {worst}")
+
+    # one view rendered through the plain twins, scored on the card
+    render = make_render_fn(scaffold, cfg, WIDTH, HEIGHT, capacity)
+    with torch.no_grad(), plain_kernels():
+        out_p, _, _ = render(scaffold.params, scaffold.mlps, test_cams[0])
+    plain = evaluate_pairs([out_p.color.permute(2, 0, 1).cpu().numpy()],
+                           gts[:1], masks[:1], names[:1], device=dev)
+    worst = check_scores(plain["per_view"][names[0]],
+                         card["per_view"][names[0]], PLAIN_PSNR_ATOL,
+                         PLAIN_SSIM_ATOL, PLAIN_LPIPS_RTOL,
+                         "plain render vs kernel render")
+    log(f"view {names[0]} rendered through the plain twins scores within "
+        f"PSNR {PLAIN_PSNR_ATOL} dB, SSIM {PLAIN_SSIM_ATOL}, LPIPS rtol "
+        f"{PLAIN_LPIPS_RTOL} of the kernels' render: {worst}")
+
+    # the card's ms per view for each metric
+    r = torch.as_tensor(res["renders"][0], device=dev)
+    g = torch.as_tensor(gts[0], device=dev)
+    m = torch.as_tensor(masks[0], device=dev)
+    with torch.no_grad():
+        ms = {"PSNR": cuda_ms(lambda: psnr(r, g), 10, 3),
+              "SSIM": cuda_ms(lambda: my_ssim(r, g), 10, 3),
+              "LPIPS": cuda_ms(lambda: lpips(r, g), 3, 3),
+              "LPIPS_masked": cuda_ms(lambda: lpips(r, g, m[0]), 3, 3)}
+    log(f"card ms per view at {WIDTH}x{HEIGHT} (CUDA events, median of 3 "
+        f"rounds): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f" [{SMI}]")
     return launches
 
+
+def eval_spiral(dev, cfg, scaffold, cams, counters, tmp):
+    """Phase (g)'s spiral split over N_SPIRAL ``get_spiral`` poses of the
+    training orbit: its files, one frame's normals on the card against
+    the CPU, the normals' and the video's costs.  Returns the launches
+    over the render."""
+    import torch
+    from gscream_tpu_torch.cameras import make_camera_from_c2w
+    from gscream_tpu_torch.data.spiral import get_spiral
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.render_sets import (camera_c2w_K,
+                                                     make_render_fn,
+                                                     normals_from_depth,
+                                                     render_set)
+    from gscream_tpu_torch.utils.png import decode_png
+    from gscream_tpu_torch.utils.video import (avi_frames, write_png_avi,
+                                               write_video)
+    c2ws = np.stack([np.linalg.inv(c.w2c.cpu().numpy().astype(np.float64))
+                     for c in cams[:N_TRAIN_VIEWS]])[:, :3, :4]
+    # the orbit's bounds: distance 3 less and more the cloud's 3σ (1.8)
+    near_fars = np.tile([[1.2, 4.8]], (N_TRAIN_VIEWS, 1))
+    poses = get_spiral(c2ws, near_fars, rads_scale=0.4, n_views=N_SPIRAL)
+    spiral = [make_camera_from_c2w(c2w, 1.0, 1.0 * HEIGHT / WIDTH, WIDTH,
+                                   HEIGHT, device=dev) for c2w in poses]
+    capacity = capacity_tier(max(instance_demand(scaffold, cfg, c)
+                                 for c in spiral))
+    for fn in counters.values():
+        fn.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = render_set(tmp, "spiral", spiral, scaffold, cfg, capacity=capacity)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in ("tile_forward", "expand_gauss_rows", "expand_rows"):
+        require(launches[name] == N_SPIRAL, f"kernel {name} launched "
+                f"{launches[name]} times over {N_SPIRAL} spiral renders")
+    for d in res["overflow_demand"]:
+        require(d <= capacity, f"overflow: demand {d} > capacity {capacity}")
+    base = os.path.join(tmp, "spiral")
+    for sub in ("renders", "depth", "normal"):
+        n = len([f for f in os.listdir(os.path.join(base, sub))
+                 if f.endswith(".png")])
+        require(n == N_SPIRAL, f"spiral/{sub}: {n} PNGs, not {N_SPIRAL}")
+    videos = [f for f in ("video.mp4", "video.avi")
+              if os.path.exists(os.path.join(base, f))]
+    require(len(videos) == 1 and os.path.getsize(
+        os.path.join(base, videos[0])) > 0, f"spiral videos {videos}")
+    if videos[0] == "video.avi":
+        require(avi_frame_count(os.path.join(base, "video.avi"))
+                == (N_SPIRAL, N_SPIRAL), "video.avi does not hold "
+                f"{N_SPIRAL} frames")
+    # the PNG-in-AVI fallback, whatever this machine has: N_SPIRAL frames,
+    # each decoding to its render bit for bit
+    frames = [r.transpose(1, 2, 0) for r in res["renders"]]
+    png_avi = os.path.join(tmp, "png_video.avi")
+    t0 = time.perf_counter()
+    write_png_avi(png_avi, frames, fps=30)
+    png_avi_ms = (time.perf_counter() - t0) * 1e3
+    header, chunks = avi_frame_count(png_avi)
+    require(header == chunks == N_SPIRAL, f"png_video.avi: {header} frames "
+            f"in its header, {chunks} chunks, not {N_SPIRAL}")
+    for raw, f in zip(avi_frames(png_avi), frames):
+        require(np.array_equal(decode_png(raw), (np.clip(f, 0, 1) * 255)
+                               .astype(np.uint8)),
+                "a PNG frame of the AVI is not its render")
+    video = (f"{videos[0]} of {os.path.getsize(os.path.join(base, videos[0]))}"
+             f" bytes; the PNG-in-AVI of {chunks} frames, each bit-equal to "
+             f"its render, {os.path.getsize(png_avi)} bytes in "
+             f"{png_avi_ms:.1f} ms")
+    log(f"spiral: {N_SPIRAL} poses at {WIDTH}x{HEIGHT}, FPS {res['fps']:.2f} "
+        f"(skip-5 protocol, renders alone), {total_s:.2f} s with the PNGs, "
+        f"normals and video; renders, inferno depths and normal maps "
+        f"{N_SPIRAL} each, {video}; instance demand "
+        f"{res['overflow_demand']} (capacity {capacity}); launches "
+        f"{launches} [{SMI}]")
+
+    # one frame's normals: the card against the same function on the CPU
+    render = make_render_fn(scaffold, cfg, WIDTH, HEIGHT, capacity)
+    with torch.no_grad():
+        out, _, _ = render(scaffold.params, scaffold.mlps, spiral[0])
+    c2w, K = camera_c2w_K(spiral[0])
+    n_card = normals_from_depth(out.depth, c2w, K)
+    n_cpu = normals_from_depth(out.depth.cpu(), c2w, K)
+    differ = int((n_card.cpu() != n_cpu).any(0).sum())
+    require(bool(torch.isfinite(n_card).all()), "normals not finite")
+    require(differ == 0, f"normals card vs CPU: {differ} pixels differ "
+            f"(max abs {float((n_card.cpu() - n_cpu).abs().max()):.3e})")
+    normals_ms = wall_ms_per_call(
+        lambda: normals_from_depth(out.depth, c2w, K), 3)
+    t0 = time.perf_counter()
+    written = write_video(os.path.join(tmp, "timed_video"), frames, fps=30)
+    video_ms = (time.perf_counter() - t0) * 1e3
+    log(f"spiral view 0 normals: the card's bit-equal to the CPU's at all "
+        f"{WIDTH * HEIGHT} pixels; {normals_ms:.3f} ms per frame on the "
+        f"card (wall, mean of 3, each to a sync); write_video of "
+        f"{N_SPIRAL} frames ({os.path.basename(written)}) {video_ms:.1f} ms "
+        f"[{SMI}]")
+    return launches
 
 SMI = ""
 
@@ -2203,13 +2580,14 @@ def render_phase(dev):
 
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
-                 loop_launches):
+                 loop_launches, eval_launches, spiral_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), the others from
     phase (d)), timed at its view 0 and holding that route's launch
     count; beside it both training routes' counts, the training loop's
-    (phase (f)) and the render path's, and, for the kernels the render
-    path runs, its own line."""
+    (phase (f)), the render path's, the evaluated test split's and the
+    spiral's (phase (g)), and, for the kernels the render path runs, its
+    own line."""
     out = []
     for name in launch_counters():
         if name in pallas:
@@ -2220,6 +2598,8 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_train"] = train_launches[name]
         rec["launches_emit_pallas"] = pallas_launches[name]
         rec["launches_loop"] = loop_launches[name]
+        rec["launches_eval"] = eval_launches[name]
+        rec["launches_spiral"] = spiral_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -2252,10 +2632,12 @@ def main():
     train, train_launches = train_phase(dev, cfg, scaffold, cams, targets)
     pallas, pallas_launches = pallas_phase(dev, cfg, scaffold, cams,
                                            targets)
-    loop_launches = loop_phase(dev, cfg, scaffold, cams, targets)
+    loop_launches, trained = loop_phase(dev, cfg, scaffold, cams, targets)
+    eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
-                                  pallas_launches, loop_launches)))
+                                  pallas_launches, loop_launches,
+                                  eval_launches, spiral_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -224,7 +224,9 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
     ts = init_train_state(scaffold, cfg, seed=run.seed + 1)
     log = TrainLog()
     from .metrics_log import MetricsLogger
-    mlog = MetricsLogger(out_dir or ".")
+    mlog = MetricsLogger(out_dir or ".",
+                         wandb_project=os.environ.get(
+                             "GSCREAM_WANDB_PROJECT", ""))
 
     start_it = 1
     if start_checkpoint:

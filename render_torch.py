@@ -2,25 +2,28 @@
 directory and render its splits on the GPU.
 
     python render_torch.py --model_path output/scene --source_path data/scene \
-        [--iteration 30000] [--skip_train] [--skip_test] \
-        [--instance_capacity N]
-    python render_torch.py --model_path output/synthetic --synthetic
+        [--iteration 30000] [--skip_train] [--skip_test] [--spiral] \
+        [--eval] [--instance_capacity N]
+    python render_torch.py --model_path output/synthetic --synthetic [--eval]
 
 The counterpart of ``render.py``: it reads ``<model>/cfg.json`` and
 ``<model>/point_cloud/iteration_<N>/{point_cloud.ply, mlp_checkpoints.npz}``
 (written by either package) and the scene's cameras (with
 ``--synthetic``, the scene ``train_torch.py --synthetic`` recorded in
 ``<model>/synthetic.json``: its first two views are the test split), and
-writes render
-sets under ``<model>/<split>/`` (renders/gt/errors/depth,
-per_view_count.json), printing each split's FPS.  A view whose instance
-demand exceeds ``--instance_capacity`` is rendered truncated, with a
-warning, as the JAX package does.  ``--eval`` and ``--spiral`` belong to
-later slices of the port and are refused.
+writes render sets under ``<model>/<split>/`` (renders/gt/errors/depth,
+per_view_count.json; with ``--spiral``, a SPIN-NeRF scene's spiral path
+with normal maps and the video), printing each split's FPS.  With
+``--eval`` it then evaluates ``<model>/test`` as ``evaluate_torch.py``
+does (the ``images_4/test_label`` masks of ``--source_path``).  A view
+whose instance demand exceeds ``--instance_capacity`` is rendered
+truncated, with a warning, as the JAX package does.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 
@@ -39,9 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
     p.add_argument("--spiral", action="store_true",
-                   help="not yet ported (a later slice of the port)")
+                   help="also render the spiral path (SPIN-NeRF scenes)")
     p.add_argument("--eval", action="store_true",
-                   help="not yet ported (a later slice of the port)")
+                   help="evaluate the test renders into results.json")
     return p.parse_args(argv)
 
 
@@ -50,9 +53,6 @@ def main(argv=None):
     if not (args.source_path or args.synthetic):
         raise SystemExit("render_torch.py: give --source_path or "
                          "--synthetic")
-    if args.spiral or args.eval:
-        raise SystemExit("render_torch.py: --spiral and --eval are not yet "
-                         "ported; use render.py for them")
     from gscream_tpu_torch.data.dataset import load_spinnerf_scene
     from gscream_tpu_torch.device import resolve_device
     from gscream_tpu_torch.model.io import load_trained_scaffold
@@ -61,9 +61,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     scaffold, cfg, it = load_trained_scaffold(args.model_path,
                                               args.iteration, dev)
+    sd = None
     if args.synthetic:
-        import json
-        import os
         from gscream_tpu_torch.data.synthetic import make_scene
         with open(os.path.join(args.model_path, "synthetic.json")) as f:
             views = make_scene(device=dev, **json.load(f)).views
@@ -92,6 +91,24 @@ def main(argv=None):
         if worst > args.instance_capacity:
             print(f"WARNING: {name}: raise --instance_capacity to at least "
                   f"{worst} for exact renders", file=sys.stderr)
+    if args.spiral:
+        if sd is None or sd.spiral_c2ws is None:
+            print("WARNING: --spiral: this scene has no spiral path (only "
+                  "SPIN-NeRF scenes do)", file=sys.stderr)
+        else:
+            from gscream_tpu_torch.cameras import make_camera_from_c2w
+            cams = [make_camera_from_c2w(c2w, sd.fov_x, sd.fov_y, sd.width,
+                                         sd.height, sd.cx_ndc, sd.cy_ndc,
+                                         device=dev)
+                    for c2w in sd.spiral_c2ws]
+            res = render_set(args.model_path, "spiral", cams, scaffold, cfg,
+                             capacity=args.instance_capacity)
+            print(f"spiral: {len(cams)} views, FPS {res['fps']:.2f}")
+    if args.eval and not args.skip_test:
+        from gscream_tpu_torch.train.evaluate import evaluate_dir
+        r = evaluate_dir(os.path.join(args.model_path, "test"),
+                         source_path=args.source_path, device=dev)
+        print("eval:", json.dumps(r["summary"]))
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ K2 equal their builds with -DGS_NO_CULL bit for bit: the cull changes
 no output.  One phase-2 ``train_step`` and one ``adjust_anchors`` on the
 card match the same calls on the CPU from the same state and draws
 (counts, ``alive``, anchors and integer statistics bit-equal, floats
-within ``tests/test_torch_train_step.py``'s tolerance).
+within ``tests/test_torch_train_step.py``'s tolerance).  ``evaluate_pairs``
+on the card scores the same renders as on the CPU within
+``chip_smoke.py``'s phase-(g) tolerances.
 
 These need a CUDA card and ``nvcc``; without one they skip.  This file
 imports neither JAX nor the JAX package, so on a machine with a card it
@@ -724,3 +726,29 @@ def test_phase2_step_and_densify_match_cpu(dev, monkeypatch):
         assert torch.equal(x.cpu(), y), f
     for f, x, y in zip(gsc.params._fields, gsc.params, csc.params):
         _close_to_cpu(x, y, f, atol=1e-6, rtol=1e-6)
+
+
+def test_evaluate_pairs_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """``evaluate_pairs`` on the card equals the CPU's on the same renders
+    (the synthetic scene's oracle renders against noisy copies, seeded
+    random LPIPS weights), every key present, within ``chip_smoke.py``'s
+    phase-(g) tolerances: PSNR 1e-4 dB, SSIM 1e-6, LPIPS rtol 1e-4."""
+    import chip_smoke as cs
+    from gscream_tpu_torch.data.synthetic import make_scene
+    from gscream_tpu_torch.train.evaluate import evaluate_pairs
+    weights = tmp_path / "lpips_random.npz"
+    cs.random_lpips_weights(str(weights))
+    monkeypatch.setenv("GSCREAM_LPIPS_WEIGHTS", str(weights))
+    views = make_scene(n_views=3, n_gauss=300, width=96, height=80,
+                       device="cpu").views
+    rng = np.random.default_rng(4)
+    gts = [v.image for v in views]
+    renders = [np.clip(g + rng.normal(0, 0.05, g.shape), 0, 1)
+               .astype(np.float32) for g in gts]
+    masks = [v.mask for v in views]
+    card = evaluate_pairs(renders, gts, masks, device=dev)
+    cpu = evaluate_pairs(renders, gts, masks, device="cpu")
+    assert set(cpu["summary"]) == set(cs.RESULT_KEYS)
+    for name, row in cpu["per_view"].items():
+        cs.check_scores(card["per_view"][name], row, cs.EVAL_PSNR_ATOL,
+                        cs.EVAL_SSIM_ATOL, cs.EVAL_LPIPS_RTOL, name)

@@ -1,5 +1,5 @@
-"""Train → render entry point of the PyTorch/CUDA port for one scene (the
-counterpart of ``train.py``).
+"""Train → render → evaluate entry point of the PyTorch/CUDA port for one
+scene (the counterpart of ``train.py``).
 
 SPIN-NeRF layout (the reference's scripts/run.py flags):
 
@@ -10,17 +10,20 @@ SPIN-NeRF layout (the reference's scripts/run.py flags):
         --ref_depth_path refs/book_out_pred.npy \\
         --voxel_size 0.005 --update_init_factor 16 --iterations 30000
 
-A synthetic scene, no dataset needed:
+A NeRF-synthetic (Blender) scene is recognised by its
+``transforms_train.json``.  A synthetic scene, no dataset needed:
 
     python train_torch.py --synthetic --iterations 200 --model_path output/synthetic
 
 It trains on the GPU (``--device cpu`` runs the plain versions of the
-kernels), writes ``cfg.json``, ``input.ply``, ``cameras.json``,
-``metrics.jsonl``, the anchors and decoders under
-``point_cloud/iteration_<N>/`` (which ``render_torch.py`` loads), the
-full train state as ``checkpoint``, and renders the test split.
-Evaluation, spiral renders and NeRF-synthetic (Blender) scenes are not
-ported yet and are refused.
+kernels), writes ``cfg.json``, ``code_snapshot.zip``, ``input.ply``,
+``cameras.json``, ``metrics.jsonl``, the anchors and decoders under
+``point_cloud/iteration_<N>/`` (which ``render_torch.py`` loads) and the
+full train state as ``checkpoint``; at each of ``--test_iterations`` it
+logs the test split's PSNR (and TensorBoard image grids); then it
+renders the test split (and, with ``--render_spiral``, a SPIN-NeRF
+scene's spiral path) and, unless ``--skip_eval``, evaluates the test
+renders into ``results.json`` and ``per_view.json``.
 """
 from __future__ import annotations
 
@@ -30,12 +33,9 @@ import os
 
 import numpy as np
 
-NOT_PORTED = ("is not ported to the PyTorch package yet (ROADMAP.md, "
-              "Queue 1 item {}); use train.py")
-
 
 def parse_args(argv=None):
-    from gscream_tpu_torch.config import OptimConfig as d
+    from gscream_tpu_torch.config import OptimConfig as d, RunConfig
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--source_path", default="")
     p.add_argument("--model_path", default="output/run")
@@ -66,17 +66,20 @@ def parse_args(argv=None):
     p.add_argument("--synthetic_size", type=int, default=128,
                    help="the synthetic views' width and height in pixels")
     p.add_argument("--skip_render", action="store_true")
+    p.add_argument("--skip_eval", action="store_true")
+    p.add_argument("--test_iterations", type=int, nargs="*",
+                   default=list(RunConfig.test_iterations),
+                   help="iterations that log the test split's PSNR")
     p.add_argument("--pretrained_ply", default="")
     p.add_argument("--start_checkpoint", default="",
                    help="resume from a checkpoint file this script wrote")
     p.add_argument("--checkpoint_interval", type=int, default=0,
                    help="save the full train state every N iterations")
+    p.add_argument("--render_spiral", action="store_true",
+                   help="also render the 120-pose spiral path (SPIN-NeRF "
+                        "scenes)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
-    p.add_argument("--eval", action="store_true",
-                   help="not yet ported (ROADMAP.md Queue 1 item 2)")
-    p.add_argument("--render_spiral", action="store_true",
-                   help="not yet ported (ROADMAP.md Queue 1 item 2)")
     return p.parse_args(argv)
 
 
@@ -94,15 +97,58 @@ def synthetic_scene(model_path: str, size: int, seed: int, device):
     return make_scene(device=device, **kw)
 
 
+def make_eval_callback(test_views, run, cfg, capacity: int, logger):
+    """The in-training evaluation (reference training_report,
+    train.py:655-695; train.py:237-280): at each of
+    ``run.test_iterations``, the test split's mean PSNR through the
+    port's render function, logged to the logger and the metrics, with
+    TensorBoard grids of the render and error map of the first 5 views
+    (the ground truth at the first test iteration only).
+    ``callback(it, ts, aux, mlog=None)``, as ``train_scene`` calls it."""
+    import torch
+    from gscream_tpu_torch.ops.losses import psnr
+    from gscream_tpu_torch.train.render_sets import make_render_fn
+
+    def callback(it, ts, aux, mlog=None):
+        if it not in run.test_iterations or not test_views:
+            return
+        cam0 = test_views[0].camera
+        render = make_render_fn(ts.scaffold, cfg, cam0.width, cam0.height,
+                                capacity)
+        vals = []
+        for vi, v in enumerate(test_views):
+            if v.image is None:
+                continue
+            out, _, demand = render(ts.scaffold.params, ts.scaffold.mlps,
+                                    v.camera)
+            if int(demand) > capacity:
+                logger.warning("[ITER %d] test view %d: instance demand %d "
+                               "exceeds capacity %d; its PSNR is of a "
+                               "truncated render", it, vi, int(demand),
+                               capacity)
+            render_chw = out.color.permute(2, 0, 1)
+            gt = torch.as_tensor(v.image, device=render_chw.device)
+            vals.append(float(psnr(render_chw, gt)))
+            if mlog is not None and vi < 5:
+                rnp = render_chw.cpu().numpy()
+                gnp = np.asarray(v.image)
+                mlog.log_images(it, {
+                    f"test_view_{vi}/render": rnp,
+                    f"test_view_{vi}/errormap": np.repeat(
+                        np.abs(rnp - gnp).mean(0, keepdims=True), 3, 0),
+                    **({f"test_view_{vi}/ground_truth": gnp}
+                       if it == run.test_iterations[0] else {}),
+                })
+        if vals:
+            logger.info("[ITER %d] test PSNR %.3f", it, sum(vals) / len(vals))
+            if mlog is not None:
+                mlog.log(it, {"test_psnr": sum(vals) / len(vals)})
+
+    return callback
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.eval or args.render_spiral:
-        raise NotImplementedError("evaluation and the spiral render set "
-                                  + NOT_PORTED.format(2))
-    if not args.synthetic and os.path.exists(
-            os.path.join(args.source_path, "transforms_train.json")):
-        raise NotImplementedError("the NeRF-synthetic (Blender) layout "
-                                  + NOT_PORTED.format(1))
     from gscream_tpu_torch.config import (ModelConfig, OptimConfig,
                                           RunConfig, save_config)
     from gscream_tpu_torch.device import resolve_device
@@ -112,6 +158,7 @@ def main(argv=None):
     from gscream_tpu_torch.model.scaffold import ScaffoldConfig
     from gscream_tpu_torch.train.loop import get_logger, train_scene
     from gscream_tpu_torch.train.render_sets import render_set
+    from gscream_tpu_torch.utils.snapshot import save_runtime_code
 
     dev = resolve_device(args.device)
     run = RunConfig(
@@ -137,18 +184,36 @@ def main(argv=None):
                 "other_depth_lr_smooth", "crossattn_lr_init",
                 "crossattn_lr_final", "enable_crossattn_refview",
                 "enable_crossattn_otherview")}),
+        test_iterations=tuple(args.test_iterations),
         seed=args.seed)
     os.makedirs(args.model_path, exist_ok=True)
     save_config(run, os.path.join(args.model_path, "cfg.json"))
     logger = get_logger(args.model_path)
+    # the run's code backup (reference saveRuntimeCode, train.py:1053-1064)
+    try:
+        save_runtime_code(args.model_path)
+    except OSError as e:             # never let bookkeeping kill a run
+        logger.warning("code snapshot failed: %s", e)
 
     ref_image = ref_depth = None
+    sd = None
     if args.synthetic:
         scene = synthetic_scene(args.model_path, args.synthetic_size,
                                 args.seed, dev)
         views, ref_index, points = scene.views, scene.ref_index, scene.points
         extent = 1.0
         test_views = views[:2]
+    elif os.path.exists(os.path.join(args.source_path,
+                                     "transforms_train.json")):
+        # NeRF-synthetic layout (reference sceneLoadTypeCallbacks
+        # "Blender", dataset_readers.py:471-474)
+        from gscream_tpu_torch.data.blender import load_blender_scene
+        sd = load_blender_scene(args.source_path, white_background=False,
+                                ply_path=args.specified_ply_path,
+                                device=dev)
+        views, points, ref_index = sd.train_views, sd.points, 0
+        extent = sd.cameras_extent
+        test_views = sd.test_views
     else:
         from gscream_tpu_torch.data.dataset import load_spinnerf_scene
         sd = load_spinnerf_scene(args.source_path, args.specified_ply_path,
@@ -180,14 +245,6 @@ def main(argv=None):
                 len(points), args.iterations, dev)
     write_scene_artifacts(args.model_path, list(test_views) + list(views),
                           points)
-    ts, log = train_scene(
-        views, ref_index, points, run, out_dir=args.model_path,
-        ref_image=ref_image, ref_depth=ref_depth, spatial_lr_scale=extent,
-        capacity=args.instance_capacity, iterations=args.iterations,
-        logger=logger, pretrained_ply=args.pretrained_ply,
-        start_checkpoint=args.start_checkpoint,
-        checkpoint_interval=args.checkpoint_interval, device=dev)
-
     m = run.model
     cfg = ScaffoldConfig(
         feat_dim=m.feat_dim, n_offsets=m.n_offsets,
@@ -195,6 +252,17 @@ def main(argv=None):
         attn_heads=run.optim.attn_head_num,
         attn_head_dim=run.optim.attn_head_dim,
         use_feat_bank=m.use_feat_bank)
+    ts, log = train_scene(
+        views, ref_index, points, run, out_dir=args.model_path,
+        ref_image=ref_image, ref_depth=ref_depth, spatial_lr_scale=extent,
+        capacity=args.instance_capacity, iterations=args.iterations,
+        logger=logger,
+        callback=make_eval_callback(test_views, run, cfg,
+                                    args.instance_capacity, logger),
+        pretrained_ply=args.pretrained_ply,
+        start_checkpoint=args.start_checkpoint,
+        checkpoint_interval=args.checkpoint_interval, device=dev)
+
     ply_dir = os.path.join(args.model_path, "point_cloud",
                            f"iteration_{args.iterations}")
     save_anchors_ply(os.path.join(ply_dir, "point_cloud.ply"), ts.scaffold,
@@ -207,14 +275,48 @@ def main(argv=None):
                 log.losses[-1] if log.losses else float("nan"),
                 int(ts.scaffold.alive.sum()), log.events)
 
-    if not args.skip_render and test_views:
-        gts = [v.image for v in test_views]
-        res = render_set(args.model_path, "test",
-                         [v.camera for v in test_views], ts.scaffold, cfg,
-                         capacity=args.instance_capacity,
-                         gt_images=gts if any(
-                             g is not None for g in gts) else None)
-        logger.info("test FPS: %.2f", res["fps"])
+    if args.skip_render or not test_views:
+        return
+    # index-aligned gts (None slots for missing PNGs, never shifted)
+    gts = [v.image for v in test_views]
+    res = render_set(args.model_path, "test",
+                     [v.camera for v in test_views], ts.scaffold, cfg,
+                     capacity=args.instance_capacity,
+                     gt_images=gts if any(
+                         g is not None for g in gts) else None)
+    logger.info("test FPS: %.2f", res["fps"])
+    if args.render_spiral and getattr(sd, "spiral_c2ws", None) is not None:
+        from gscream_tpu_torch.cameras import make_camera_from_c2w
+        spiral_cams = [make_camera_from_c2w(
+            c2w, sd.fov_x, sd.fov_y, sd.width, sd.height, sd.cx_ndc,
+            sd.cy_ndc, device=dev) for c2w in sd.spiral_c2ws]
+        sres = render_set(args.model_path, "spiral", spiral_cams,
+                          ts.scaffold, cfg, capacity=args.instance_capacity)
+        logger.info("spiral FPS: %.2f", sres["fps"])
+    if args.skip_eval:
+        return
+    from gscream_tpu_torch.train.evaluate import (evaluate_pairs,
+                                                  load_test_label_masks,
+                                                  write_results)
+    # pair render i with test view i; skip views without a GT image
+    idxs = [i for i, v in enumerate(test_views)
+            if v.image is not None and i < len(res["renders"])]
+    if not idxs:
+        return
+    gts = [test_views[i].image for i in idxs]
+    renders = [res["renders"][i] for i in idxs]
+    # the reference's masked protocol: images_4/test_label masks,
+    # 1-indexed by test position, LANCZOS-resized to the render size
+    # (train.py:895-899); the views' own masks otherwise
+    h, w = gts[0].shape[1:]
+    masks = (load_test_label_masks(args.source_path, len(test_views),
+                                   (w, h)) if args.source_path else None)
+    masks = ([masks[i] for i in idxs] if masks is not None
+             else [test_views[i].mask for i in idxs])
+    results = evaluate_pairs(renders, gts, masks,
+                             names=[f"{i:05d}" for i in idxs], device=dev)
+    write_results(args.model_path, results)
+    logger.info("eval: %s", json.dumps(results["summary"]))
 
 
 if __name__ == "__main__":
