@@ -79,12 +79,28 @@ catches its own failure):
     bit-equal to the CPU's; then ``train_torch.py --synthetic`` at
     128x128 with the evaluation callback and evaluation, and
     ``render_torch.py --eval`` and ``evaluate_torch.py`` on what it
-    wrote.
+    wrote;
+(h) multi-GPU training over a (data, tiles) mesh on a fresh copy of the
+    model: at view 0 of the training path, K1 and K2 per band for 2 and
+    4 bands (the stitched band images bit-equal to the full frame's K1,
+    each band's K2 rows bit-equal to the full frame's in the band's
+    slots and zero outside them, and within GRAD_* of the plain twin;
+    the per-band K4+K3 sums added over the bands within BAND_SUM_* of the
+    full frame's); then ``SHARD_STEPS`` steps of
+    ``make_sharded_train_step`` at meshes (1, 2) and (2, 1) in a world
+    of two spawned ranks (NCCL with a card each where there are two
+    cards, else gloo sharing the one card, staged through host memory:
+    these are the path's costs, not a scaling result), (1, 2) held to
+    the single-device ``train_step`` (TRAJ_*), (2, 1)'s first loss to
+    the mean of its views' losses (DP_LOSS_RTOL), the replicas bit-equal, wall ms per
+    step and launches per rank-step; then ``train_torch.py --synthetic
+    --mesh_tiles 2`` as two ranks against one process.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), the others from phase (d), with the
 render path's, each training route's, the loop's and phase (g)'s
-launch counts (``launches_eval``, ``launches_spiral``) and the render
+launch counts (``launches_eval``, ``launches_spiral``), phase (h)'s
+summed over its ranks and meshes (``launches_sharded``) and the render
 path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
 profiler's device time and launches per call; K1's and K2's lines also
 carry the tile-count
@@ -97,7 +113,10 @@ them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
-non-zero without printing a result.
+non-zero without printing a result.  ``--phase h`` builds the kernels
+and runs phase (h) alone (on a host with two or more cards its ranks
+take a card each, over NCCL), printing its launches and the card's line
+but no result line.
 """
 from __future__ import annotations
 
@@ -1314,20 +1333,10 @@ def recorded_kernel_args(fn):
 
 
 def launch_counters():
-    """{kernel name: its wrapper}, in the order of the kernels line."""
-    from gscream_tpu_torch.ops import emission as em
-    from gscream_tpu_torch.ops import rasterize_tiled as rt
-    from gscream_tpu_torch.ops import shuffle as sh
-    return {"tile_forward": rt.run_forward,
-            "tile_backward": rt.run_backward,
-            "segment_reduce": rt.segment_reduce_cm,
-            "unpack_columns": sh.unpack_columns,
-            "expand_gauss_rows": em.expand_gauss_rows,
-            "expand_rows": em.expand_rows,
-            "segment_reduce_rows": rt.segment_reduce_rows,
-            "pack_columns": sh.pack_columns,
-            "expand1": em.expand1,
-            "expand2": em.expand2}
+    """{kernel name: its wrapper}, in the order of the kernels line (the
+    spawned ranks of phase (h) count with the same table)."""
+    from gscream_tpu_torch.parallel.workers import kernel_wrappers
+    return kernel_wrappers()
 
 
 # ---------------------------------------------------------------------------
@@ -2413,6 +2422,435 @@ def eval_spiral(dev, cfg, scaffold, cams, counters, tmp):
         f"[{SMI}]")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase (h): multi-GPU training over a (data, tiles) mesh
+
+SHARD_BANDS = (2, 4)    # band counts of the one-process band check
+SHARD_STEPS = 4         # sharded steps per mesh
+SHARD_MESHES = ((1, 2), (2, 1))
+# the per-band K4+K3 sums added over the bands against the full frame's,
+# per lane: |Σ_b − full| ≤ BAND_SUM_ATOL·scale + BAND_SUM_RTOL·|full|
+# (scale = max |full|).  Only a gaussian whose run crosses a band
+# boundary is summed in another order (its chunk partials regrouped), a
+# float32 reassociation of a few ulps of its terms
+BAND_SUM_ATOL = 1e-5
+BAND_SUM_RTOL = 1e-5
+# the sharded trajectory against the single-device one.  The first
+# step's gradients (the first moments, 0.1·g, both from the same state)
+# within GRAD_*: the band split only reassociates the sums.  Over
+# SHARD_STEPS steps: the losses within TRAJ_LOSS_RTOL; every moment and
+# statistic within TRAJ_FLIP_REL·s and every parameter within TRAJ_ATOL +
+# TRAJ_RTOL·|ref| + 2·Σ lr (the learning rates of its group over the
+# steps), and all but max(n/200, 8) of a leaf's elements within the tight
+# bound (TRAJ_TIGHT_ATOL·s + TRAJ_TIGHT_RTOL·|ref|; s = 1 for parameters,
+# max |ref| for the rest; JAX's population bound, tests/test_sharded.py::
+# test_trajectory_matches_single_device).  Where a gradient is as small
+# as the reassociation noise, Adam's m/√v turns the noise into a step of
+# either sign, so a few parameters walk apart by up to their learning
+# rate per step, and their moments with them; a gaussian whose neural
+# opacity or radius sits at 0 can then flip between active and not, and
+# move a visibility count by 1 in a step (their loose bound is the number
+# of steps)
+TRAJ_LOSS_RTOL = 5e-3
+TRAJ_ATOL = 5e-3
+TRAJ_RTOL = 5e-2
+TRAJ_FLIP_REL = 5e-2
+TRAJ_TIGHT_ATOL = 5e-4
+TRAJ_TIGHT_RTOL = 5e-3
+# (2, 1)'s first loss against the mean of its two views' losses, each
+# taken alone on this card by the band losses at one band
+# (make_sharded_loss at mesh (1, 1)): the same sums, so only the mean's
+# rounding differs
+DP_LOSS_RTOL = 1e-6
+# the CLI's 2-rank loop against the single-device one
+CLI_ITERS = 12
+CLI_FLAGS = ["--synthetic", "--synthetic_size", "128", "--iterations",
+             str(CLI_ITERS), "--start_crossattn_from", "10", "--start_stat",
+             "1", "--update_from", "4", "--update_interval", "4",
+             "--update_until", "9", "--skip_render", "--skip_eval"]
+
+
+def trajectory_close(got, ref, label, moment, lr_sum=0.0, loose=None):
+    """Hold ``got`` to ``ref`` with the TRAJ_* bounds (``lr_sum``: the
+    parameter's learning rates summed over the steps; ``loose``: the loose
+    bound, where it is not TRAJ_*'s); returns (max abs error, elements
+    beyond the tight bound)."""
+    import torch
+    got, ref = got.double(), ref.double()
+    require(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    s = max(float(ref.abs().max()), 1e-30) if moment else 1.0
+    err = (got - ref).abs()
+    if loose is None:
+        loose = (TRAJ_FLIP_REL * s if moment else
+                 TRAJ_ATOL + TRAJ_RTOL * ref.abs() + 2.0 * lr_sum)
+    tight = TRAJ_TIGHT_ATOL * s + TRAJ_TIGHT_RTOL * ref.abs()
+    n_bad = int((err > tight).sum())
+    worst = float(err.max()) if err.numel() else 0.0
+    require(bool((err <= loose).all()),
+            f"{label}: max abs {worst:.3e} beyond the loose bound "
+            f"({n_bad} of {err.numel()} beyond the tight one)")
+    require(n_bad <= max(err.numel() // 200, 8),
+            f"{label}: {n_bad} of {err.numel()} beyond the tight bound "
+            f"(max abs {worst:.3e})")
+    return worst, n_bad
+
+
+def band_kernels(dev, cfg, scaffold, cams, targets):
+    """Part 1: at view 0 of the default route (the arguments one
+    ``loss_and_grads`` call gave K1 and K2), K1 and K2 per band for each
+    band count: the stitched band images bit-equal to the full frame's
+    K1 (the pad tiles empty), each band's K2 rows bit-equal to the full
+    frame's in the band's slots and zero outside them, within the GRAD_*
+    bounds of the plain twin, and the per-band K4+K3 sums added over the
+    bands within BAND_SUM_* of the full frame's."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.parallel.shard import (_band_geometry,
+                                                  _band_slices, pad_tiles)
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.step import loss_and_grads, phase1_masks
+    cap = capacity_tier(instance_demand(scaffold, cfg, cams[0]))
+    g, args = recorded_kernel_args(lambda: loss_and_grads(
+        scaffold, cams[0], *targets[0], cfg=cfg, opt=OptimConfig(),
+        is_ref=True, capacity=cap, masks=phase1_masks(False)))
+    inst, ts_full, tc_full, n_tiles = args["run_forward"]
+    pix = args["run_backward"][1]
+    binning = g.binning
+    full_k1 = rt.run_forward(inst, ts_full, tc_full, n_tiles)
+    full_k2 = rt.run_backward(inst, pix, ts_full, tc_full, n_tiles)
+    full_pg = rt.per_gaussian_sums(full_k2, binning)
+    sync()
+    n_live = min(int(binning.num_instances), inst.shape[0])
+    for n in SHARD_BANDS:
+        gx, gy, gy_pad, rows = _band_geometry(WIDTH, HEIGHT, n)
+        bb = pad_tiles(binning, WIDTH, HEIGHT, n)
+        pix_pad = torch.cat([pix, pix.new_zeros(((gy_pad - gy) * gx,)
+                                                + pix.shape[1:])])
+        k1_parts, pg_sum, k2_err = [], None, 0.0
+        for b in range(n):
+            ts_b, tc_b, nl = _band_slices(bb, gx, rows, b)
+            pix_b = pix_pad[b * nl:(b + 1) * nl]
+            k1_parts.append(rt.run_forward(inst, ts_b, tc_b, nl))
+            rows_b = rt.run_backward(inst, pix_b, ts_b, tc_b, nl)
+            sync()
+            lo, hi = int(ts_b[0]), int(ts_b[-1] + tc_b[-1])
+            require(torch.equal(rows_b[lo:hi], full_k2[lo:hi]),
+                    f"{n} bands, band {b}: K2 rows in the band's slots "
+                    f"[{lo}, {hi}) differ from the full frame's")
+            require(bool((rows_b[:lo] == 0).all())
+                    and bool((rows_b[hi:] == 0).all()),
+                    f"{n} bands, band {b}: K2 left a slot outside "
+                    f"[{lo}, {hi}) non-zero")
+            plain_b = rt.run_backward_plain(inst, pix_b, ts_b, tc_b, nl)
+            for lane in range(16 if hi > lo else 0):   # a band of pad tiles
+                e, _ = grad_close(rows_b[lo:hi, lane], plain_b[lo:hi, lane],
+                                  f"{n} bands, band {b}: K2 lane {lane}")
+                k2_err = max(k2_err, e)
+            pg_b = rt.per_gaussian_sums(rows_b, bb)
+            pg_sum = pg_b if pg_sum is None else pg_sum + pg_b
+        tiles = torch.cat(k1_parts)
+        require(torch.equal(tiles[:n_tiles], full_k1),
+                f"{n} bands: the stitched K1 bands differ from the full "
+                "frame's K1")
+        pad = tiles[n_tiles:]
+        require(bool((pad[:, 6] == 1).all()) and not bool(pad[:, :6].any()),
+                f"{n} bands: a pad tile is not empty")
+        err = (pg_sum - full_pg).abs()
+        scale = full_pg.abs().amax(0, keepdim=True)
+        require(bool((err <= BAND_SUM_ATOL * scale
+                      + BAND_SUM_RTOL * full_pg.abs()).all()),
+                f"{n} bands: the band sums differ from the full frame's by "
+                f"{float((err / scale.clamp_min(1e-30)).max()):.3e} of a "
+                "lane's scale")
+        log(f"{n} bands ({rows} tile rows each, {(gy_pad - gy) * gx} pad "
+            f"tiles, {n_live} instances): K1 stitched bit-equal to the full "
+            f"frame, pad tiles empty; K2 per band bit-equal in the band's "
+            f"slots and zero outside, against its plain twin max abs err "
+            f"{k2_err:.3e} within GRAD_*; K4+K3 band sums added over the "
+            f"bands vs the full frame: max {float(err.max()):.3e}, "
+            f"{float((err / scale.clamp_min(1e-30)).max()):.3e} of a lane's "
+            "scale")
+
+
+def compare_with_one_device(dev, cfg, opt, cams, targets, cap, state, plan,
+                            rank0):
+    """Mesh (1, 2)'s run (rank 0's result) against ``train_step`` on one
+    process over the same views from the same state: the first step's
+    gradients within GRAD_*, the losses, parameters, moments and
+    statistics within TRAJ_*."""
+    import torch
+    from gscream_tpu_torch.parallel import workers
+    from gscream_tpu_torch.train.state import group_of, lr_tree, named_params
+    from gscream_tpu_torch.train.step import train_step
+    ref = workers.load_state(state, cfg, dev)
+    losses, first = [], None
+    for vs in plan:
+        v = vs[0]
+        ref, aux = train_step(ref, cams[v], *targets[v], cfg=cfg, opt=opt,
+                              is_ref=v == 0, capacity=cap, width=WIDTH,
+                              height=HEIGHT, accumulate=True)
+        losses.append(aux.packed[0].item())
+        if first is None:
+            first = {k: t.detach().to("cpu", copy=True)
+                     for k, t in ref.m.items()}
+    g_err = 0.0
+    for name, want in first.items():
+        got = rank0["states"][0]["m"][name]
+        if not want.any():
+            require(not got.any(), f"mesh (1, 2): step 1 gave {name} a "
+                    "gradient one device does not")
+            continue
+        g_err = max(g_err, grad_close(got, want, f"mesh (1, 2) step 1 "
+                                      f"gradient of {name}")[0] / max(
+            float(want.abs().max()), 1e-30))
+    got = rank0["packed"][:, 0].double()
+    want = torch.tensor(losses, dtype=torch.float64)
+    require(bool(((got - want).abs() <= TRAJ_LOSS_RTOL * want.abs()).all()),
+            f"mesh (1, 2) losses {got.tolist()} vs one device {losses}")
+    lr_sum = {}
+    for t in range(1, len(plan) + 1):
+        for group, lr in lr_tree(t, opt, 1.0).items():
+            lr_sum[group] = lr_sum.get(group, 0.0) + lr
+    st = rank0["state"]
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    flips = {"params": 0, "m": 0, "v": 0}
+    for name, t in named_params(ref.scaffold).items():
+        for what, a, b in (("params", st["params"][name], t),
+                           ("m", st["m"][name], ref.m[name]),
+                           ("v", st["v"][name], ref.v[name])):
+            e, nb = trajectory_close(a, b.detach().cpu(),
+                                     f"mesh (1, 2) {what} {name}",
+                                     what != "params",
+                                     lr_sum[group_of(name)])
+            worst[what] = max(worst[what], e)
+            flips[what] += nb
+    stat_flips = {}
+    for f in ("anchor_demon", "offset_denom", "opacity_accum",
+              "offset_grad_accum"):
+        # a visibility count moves by at most 1 a step
+        counts = f in ("anchor_demon", "offset_denom")
+        stat_flips[f] = trajectory_close(
+            st["stats"][f], getattr(ref.stats, f).cpu(), f"mesh (1, 2) {f}",
+            True, loose=float(len(plan)) if counts else None)[1]
+    log(f"mesh (1, 2) vs one device: step 1 gradients within GRAD_* "
+        f"(worst {g_err:.3e} of a leaf's scale); over {len(plan)} steps "
+        f"losses {losses} (max rel "
+        f"{float(((got - want).abs() / want.abs()).max()):.3e}); max abs "
+        f"err params {worst['params']:.3e}, m {worst['m']:.3e}, v "
+        f"{worst['v']:.3e}; elements beyond the tight bound {flips}; "
+        f"statistics within TRAJ_*, elements beyond the tight bound "
+        f"{stat_flips}")
+
+
+def sharded_runs(dev, cfg, scaffold, cams, targets, tmp):
+    """Part 2: ``SHARD_STEPS`` steps of ``make_sharded_train_step`` at
+    each mesh of SHARD_MESHES in a spawned world of two ranks (NCCL, one
+    card each, where the machine has two cards; gloo sharing the one
+    card otherwise), and at (2, 2) in four ranks where it has four;
+    (1, 2) against the single-device ``train_step``, (2, 1)'s first loss
+    against the mean of its views' losses, (2, 2)'s losses against (2,
+    1)'s (TRAJ_LOSS_RTOL), the replicas bit-equal.  Returns each kernel's launches summed over the
+    ranks and meshes, and the wall ms per step of each mesh."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.model.io import save_checkpoint
+    from gscream_tpu_torch.parallel import distributed as dist_
+    from gscream_tpu_torch.parallel import workers
+    from gscream_tpu_torch.parallel.mesh import Mesh
+    from gscream_tpu_torch.parallel.shard import (make_sharded_loss,
+                                                  sharded_view_batch)
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.state import init_train_state
+    opt = OptimConfig()
+    state = os.path.join(tmp, "state.pt")
+    save_checkpoint(state, init_train_state(scaffold, cfg))
+    demand = max(instance_demand(scaffold, cfg, c) for c in cams)
+    cap = capacity_tier(demand + demand // 4)
+    host = [tuple(t.cpu() for t in tg) for tg in targets]
+    cpu_cams = [workers.camera_to(c, "cpu") for c in cams]
+
+    def batch(views):
+        return sharded_view_batch(
+            [dict(camera=cpu_cams[v], image=host[v][0], mask=host[v][1],
+                  depth=host[v][2]) for v in views],
+            fg_boxes=[host[v][3] if v == 0 else torch.zeros_like(host[v][3])
+                      for v in views],
+            is_ref=[v == 0 for v in views], device="cpu")
+    plans = {(1, 2): [[i % len(cams)] for i in range(SHARD_STEPS)],
+             (2, 1): [[(2 * i) % len(cams), (2 * i + 1) % len(cams)]
+                      for i in range(SHARD_STEPS)]}
+    plans[(2, 2)] = plans[(2, 1)]
+    # on a host with four cards the (2, 2) mesh too, a card per rank
+    meshes = SHARD_MESHES + (((2, 2),) if cards(dev) >= 4 else ())
+    backend = rank_backend(dev)
+    log(f"sharded runs: backend {backend} over {cards(dev)} card(s) ("
+        + ("one card per rank" if backend == "nccl" else
+           "two ranks sharing the card, collectives staged through host "
+           "memory") + f"), capacity {cap}, {SHARD_STEPS} steps per mesh")
+    launches, wall, losses_of = {}, {}, {}
+    for shape in meshes:
+        steps = [dict(batch=batch(vs), accumulate=True)
+                 for vs in plans[shape]]
+        t0 = time.perf_counter()
+        res = dist_.spawn(workers.steps_worker, shape[0] * shape[1], shape,
+                          cfg, opt, cap, WIDTH, HEIGHT, state, steps,
+                          int(shape == (1, 2)), backend=backend,
+                          device=dev.type, timeout_s=600)
+        took = time.perf_counter() - t0
+        digests = {r["digest"] for r in res}
+        require(len(digests) == 1, f"mesh {shape}: replicas differ")
+        for r in res:
+            require(torch.equal(r["packed"], res[0]["packed"]),
+                    f"mesh {shape}: ranks report different steps")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        packed = res[0]["packed"]
+        losses_of[shape] = packed[:, 0]
+        require(bool((packed[:, 2] <= cap).all()), f"mesh {shape}: "
+                f"overflow, demand {packed[:, 2].tolist()} > {cap}")
+        require(bool(torch.isfinite(packed[:, :2]).all()),
+                f"mesh {shape}: a loss is not finite")
+        per_rank = {k: n / SHARD_STEPS for k, n in res[0]["launches"].items()
+                    if n}
+        # (the wrappers count launches on the card only: a CPU rehearsal
+        # runs the plain twins)
+        for k in ("tile_forward", "tile_backward", "segment_reduce",
+                  "unpack_columns", "expand_gauss_rows", "expand_rows"
+                  ) if dev.type == "cuda" else ():
+            require(all(r["launches"][k] == SHARD_STEPS for r in res),
+                    f"mesh {shape}: {k} launched "
+                    f"{[r['launches'][k] for r in res]} times in "
+                    f"{SHARD_STEPS} steps per rank")
+        wall[shape] = [r["wall_ms"] for r in res]
+        med = float(np.median(res[0]["wall_ms"][1:]))
+        staged = [r.get("staged") for r in res]
+        log(f"mesh {shape} ({backend}): losses {packed[:, 0].tolist()}, "
+            f"instances {packed[:, 2].int().tolist()}; wall ms per step "
+            f"(rank 0) {[round(x, 3) for x in res[0]['wall_ms']]}, median "
+            f"of steps 2-{SHARD_STEPS} {med:.3f}; launches per rank-step "
+            f"{per_rank}; host-staged collectives per rank {staged}; "
+            f"replicas bit-equal (sha256 {res[0]['digest'][:16]}); spawn + "
+            f"run {took:.1f} s [{SMI}]")
+        if shape == (1, 2):
+            compare_with_one_device(dev, cfg, opt, cams, targets, cap, state,
+                                    plans[shape], res[0])
+        elif shape == (2, 2):
+            dp = losses_of[(2, 1)]
+            require(bool(((packed[:, 0] - dp).abs() <= TRAJ_LOSS_RTOL
+                          * dp.abs()).all()),
+                    f"mesh (2, 2) losses {packed[:, 0].tolist()} vs (2, 1)'s "
+                    f"{dp.tolist()}")
+            log(f"mesh (2, 2): losses within "
+                f"{float(((packed[:, 0] - dp).abs() / dp.abs()).max()):.2e} "
+                "of (2, 1)'s")
+        else:
+            ref = workers.load_state(state, cfg, dev)
+            one = make_sharded_loss(Mesh(), cfg, opt, cap, WIDTH, HEIGHT)
+            view_losses = [one(ref.scaffold, workers.batch_to(
+                batch([v]), dev))[0].item() for v in plans[shape][0]]
+            mean = 0.5 * (view_losses[0] + view_losses[1])
+            require(abs(packed[0, 0].item() - mean)
+                    <= DP_LOSS_RTOL * abs(mean),
+                    f"mesh (2, 1) first loss {packed[0, 0].item()} vs the "
+                    f"mean of its views' {view_losses}")
+            log(f"mesh (2, 1): first loss {packed[0, 0].item():.7f} = mean "
+                f"of its views' losses {view_losses} within "
+                f"{abs(packed[0, 0].item() - mean):.2e}")
+    return launches, wall
+
+
+def cards(dev) -> int:
+    import torch
+    return torch.cuda.device_count() if dev.type == "cuda" else 0
+
+
+def rank_backend(dev) -> str:
+    """NCCL with a card per rank where there are two; gloo otherwise."""
+    return "nccl" if cards(dev) >= 2 else "gloo"
+
+
+def sharded_cli(dev, tmp):
+    """Part 3: ``train_torch.py --synthetic --mesh_tiles 2`` as two ranks
+    (``--dist_*``; gloo when the machine has one card) for CLI_ITERS
+    iterations with densifications and phase-2 steps, against the same
+    command on one process: the losses of ``train_log.json`` within
+    TRAJ_LOSS_RTOL and the same events."""
+    import socket
+    port_s = socket.socket()
+    port_s.bind(("127.0.0.1", 0))
+    port = port_s.getsockname()[1]
+    port_s.close()
+    backend = rank_backend(dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "train_torch.py")] + CLI_FLAGS
+        + ["--model_path", os.path.join(tmp, "mesh"), "--mesh_tiles", "2",
+           "--dist_coordinator", f"127.0.0.1:{port}", "--dist_nprocs", "2",
+           "--dist_pid", str(r), "--dist_backend", backend,
+           "--device", dev.type],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        finally:
+            if p.poll() is None:
+                p.kill()
+    mesh_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"train_torch.py rank {r} exited "
+                f"{p.returncode}:\n{out[-4000:]}")
+    t0 = time.perf_counter()
+    single = subprocess.run(
+        [sys.executable, os.path.join(root, "train_torch.py")] + CLI_FLAGS
+        + ["--model_path", os.path.join(tmp, "single"), "--device",
+           dev.type], cwd=root, env=env,
+        capture_output=True, text=True, timeout=600)
+    single_s = time.perf_counter() - t0
+    require(single.returncode == 0, f"train_torch.py exited "
+            f"{single.returncode}:\n{single.stdout[-2000:]}"
+            f"{single.stderr[-2000:]}")
+    logs = {}
+    for name in ("mesh", "single"):
+        with open(os.path.join(tmp, name, "train_log.json")) as f:
+            logs[name] = json.load(f)
+    a, b = logs["mesh"], logs["single"]
+    la, lb = np.asarray(a["losses"]), np.asarray(b["losses"])
+    require(la.shape == lb.shape == (CLI_ITERS,), f"losses {la} {lb}")
+    require(bool(np.all(np.abs(la - lb) <= TRAJ_LOSS_RTOL * np.abs(lb))),
+            f"the 2-rank CLI's losses {la.tolist()} vs one process's "
+            f"{lb.tolist()}")
+    ev = [e["event"] for e in a["events"]]
+    require(ev == [e["event"] for e in b["events"]] and "densify" in ev,
+            f"events {a['events']} vs {b['events']}")
+    phase2 = [s["it"] for s in a["steps"] if s["use_cross"]]
+    require(phase2, "the CLI ran no phase-2 step")
+    log(f"CLI: train_torch.py --synthetic --mesh_tiles 2 on 2 ranks "
+        f"({backend}) for {CLI_ITERS} iterations (phase 2 at {phase2}, "
+        f"events {a['events']}) in {mesh_s:.1f} s, one process in "
+        f"{single_s:.1f} s; losses max rel diff "
+        f"{float(np.max(np.abs(la - lb) / np.abs(lb))):.3e} [{SMI}]")
+
+
+def sharded_phase(dev, cams, targets):
+    """Phase (h): multi-GPU training over a (data, tiles) mesh on a fresh
+    copy of the benchmark model.  Returns each kernel's launches over the
+    sharded steps, summed over ranks and meshes."""
+    t_start = time.perf_counter()
+    cfg, scaffold = bench_scene(dev)
+    cams = cams[:N_TRAIN_VIEWS]
+    band_kernels(dev, cfg, scaffold, cams, targets)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, _ = sharded_runs(dev, cfg, scaffold, cams, targets, tmp)
+        sharded_cli(dev, tmp)
+    log(f"phase (h) took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 SMI = ""
 
 
@@ -2580,13 +3018,15 @@ def render_phase(dev):
 
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
-                 loop_launches, eval_launches, spiral_launches):
+                 loop_launches, eval_launches, spiral_launches,
+                 sharded_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), the others from
     phase (d)), timed at its view 0 and holding that route's launch
     count; beside it both training routes' counts, the training loop's
     (phase (f)), the render path's, the evaluated test split's and the
-    spiral's (phase (g)), and, for the kernels the render path runs, its
+    spiral's (phase (g)), the sharded steps' (phase (h), summed over the
+    ranks and meshes), and, for the kernels the render path runs, its
     own line."""
     out = []
     for name in launch_counters():
@@ -2600,6 +3040,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_loop"] = loop_launches[name]
         rec["launches_eval"] = eval_launches[name]
         rec["launches_spiral"] = spiral_launches[name]
+        rec["launches_sharded"] = sharded_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -2619,6 +3060,9 @@ def main():
                                  "PyTorch/CUDA port")
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
                     "earlier tree: time its K1 and K2 beside the port's")
+    ap.add_argument("--phase", choices=("h",), help="build the kernels "
+                    "and run this phase alone (on a host with several "
+                    "cards, phase (h)'s ranks take one card each)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -2627,6 +3071,13 @@ def main():
     SMI = smi_line()
     build_kernels(opts.parent)
     dev = torch.device("cuda")
+    if opts.phase == "h":
+        cfg, _ = bench_scene(dev)
+        cams = orbit_cameras(dev)
+        print(json.dumps({"launches_sharded": sharded_phase(
+            dev, cams, training_targets(dev, cfg, cams[:N_TRAIN_VIEWS]))}))
+        print(SMI)
+        return
     render, cfg, scaffold, cams = render_phase(dev)
     targets = training_targets(dev, cfg, cams[:N_TRAIN_VIEWS])
     train, train_launches = train_phase(dev, cfg, scaffold, cams, targets)
@@ -2634,10 +3085,12 @@ def main():
                                            targets)
     loop_launches, trained = loop_phase(dev, cfg, scaffold, cams, targets)
     eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
+    sharded_launches = sharded_phase(dev, cams, targets)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
                                   pallas_launches, loop_launches,
-                                  eval_launches, spiral_launches)))
+                                  eval_launches, spiral_launches,
+                                  sharded_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,10 +26,13 @@
 // in float32).
 //
 // Every slot of the (capacity, 16) output is written: a tile's instances
-// after its early stop get zero rows, and the slots past the last tile's
-// range (tile ranges are ascending and contiguous from slot 0, as
-// bin_instances lays them out) are zeroed by the CTAs once the tiles are
-// done.
+// after its early stop get zero rows, and the slots before the first
+// tile's range and past the last tile's (tile ranges are ascending and
+// contiguous, as bin_instances lays them out) are zeroed by the CTAs once
+// the tiles are done.  A band of a sharded grid (parallel/shard.py)
+// passes its own tiles, whose ranges start past slot 0: the head fill
+// leaves its rows zero outside the band, so the per-gaussian reductions
+// (K4+K3, K7) sum the band's partials unmasked.
 //
 // Bound on the H100: operations.  Per evaluated (instance, pixel) pair the
 // polynomial and exponential as in K1, per applied pair ~40 more float32
@@ -287,12 +290,18 @@ tile_backward_kernel(const float* __restrict__ inst,       // (cap,16)
     }
   }
 
-  // the slots past the last tile's range
+  // the slots before the first tile's range and past the last tile's
+  const int head = n_tiles > 0 ? min(tile_start[0], capacity) : 0;
   const int end = n_tiles > 0
       ? min(tile_start[n_tiles - 1] + tile_count[n_tiles - 1], capacity) : 0;
   float4* o4 = reinterpret_cast<float4*>(out);
-  for (size_t j = (size_t)end * 4 + (size_t)blockIdx.x * gs::kThreads + tid;
-       j < (size_t)capacity * 4; j += (size_t)gridDim.x * gs::kThreads) {
+  const size_t first = (size_t)blockIdx.x * gs::kThreads + tid;
+  const size_t stride = (size_t)gridDim.x * gs::kThreads;
+  for (size_t j = first; j < (size_t)head * 4; j += stride) {
+    o4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (size_t j = (size_t)max(end, head) * 4 + first;
+       j < (size_t)capacity * 4; j += stride) {
     o4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }

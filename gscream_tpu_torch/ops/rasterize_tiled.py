@@ -272,9 +272,11 @@ def run_backward(inst, pix_tiles, tile_start, tile_count,
     gradient rows in sorted order: lanes 1-5 Σ_p w·g, lanes 6-11 the
     moments of X = ∂L/∂α·G against ``[1, x, y, x², xy, y²]`` in the
     gaussian's rounded-centre frame, lanes 0 and 12-15 zero.  Slots no
-    tile blends (past a tile's early stop, past the last tile) are zero.
-    The tile ranges must be ascending and contiguous from slot 0, as
-    :func:`~.binning.bin_instances` lays them out."""
+    tile blends (past a tile's early stop, before the first tile's range,
+    past the last tile's) are zero.  The tile ranges must be ascending
+    and contiguous, as :func:`~.binning.bin_instances` lays them out; a
+    band of a sharded grid (``parallel/shard.py``) passes the ranges of
+    its own tiles, which start past slot 0."""
     if inst.device.type == "cpu":
         return run_backward_plain(inst, pix_tiles, tile_start, tile_count,
                                   n_tiles)
@@ -479,6 +481,24 @@ def segment_reduce_grads(conv: torch.Tensor,
     return segment_reduce_rows(ge, binning.offsets)
 
 
+def per_gaussian_sums(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
+    """K2's (capacity, 16) rows in sorted order → (N, 16) sums over each
+    gaussian's instances (rasterize_tiled.py:1224-1237): K4, the column
+    scatter and K3 under ``GSCREAM_REORDER=cm``, the row scatter and K7
+    otherwise."""
+    if os.environ.get("GSCREAM_SCATTER_REDUCE"):
+        raise NotImplementedError(
+            "GSCREAM_SCATTER_REDUCE (an atomic segment_sum) is not "
+            "ported; unset it")
+    if _reorder_mode() == "cm":
+        with record_function("raster_bwd/K4 unpack + reorder"):
+            ge = emission_columns(rows, binning)
+        with record_function("raster_bwd/K3 segment_reduce"):
+            return segment_reduce_cm(ge, binning.offsets)
+    with record_function("raster_bwd/reorder + K7 segment_reduce"):
+        return segment_reduce_grads(rows, binning)
+
+
 def pixel_rows(raw_c, d_img, u_img, t_img, bg, g_color, g_depth, g_unc,
                g_tfin, width: int, height: int) -> torch.Tensor:
     """K2's per-pixel input, (n_tiles, 8, 1024) rows ``[g_r, g_g, g_b,
@@ -530,19 +550,7 @@ class _RasterizeTiled(torch.autograd.Function):
             rows = run_backward(inst, pix, binning.tile_start,
                                 binning.tile_count,
                                 binning.tile_start.shape[0])
-        # the per-gaussian sums (rasterize_tiled.py:1224-1237)
-        if os.environ.get("GSCREAM_SCATTER_REDUCE"):
-            raise NotImplementedError(
-                "GSCREAM_SCATTER_REDUCE (an atomic segment_sum) is not "
-                "ported; unset it")
-        if _reorder_mode() == "cm":
-            with record_function("raster_bwd/K4 unpack + reorder"):
-                ge = emission_columns(rows, binning)
-            with record_function("raster_bwd/K3 segment_reduce"):
-                pg = segment_reduce_cm(ge, binning.offsets)
-        else:
-            with record_function("raster_bwd/reorder + K7 segment_reduce"):
-                pg = segment_reduce_grads(rows, binning)
+        pg = per_gaussian_sums(rows, binning)
         with record_function("raster_bwd/chain"):
             grads = pergauss_chain(pg, mean2d, conic, op)
             # out_color = C + T·bg  ⇒  d bg = Σ_p T_p · g_color_p

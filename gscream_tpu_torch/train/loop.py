@@ -37,6 +37,8 @@ from ..device import resolve_device
 from ..model.densify import adjust_anchors
 from ..model.scaffold import ScaffoldConfig, init_scaffold
 from ..precision import ensure_fp32_matmuls
+from ..parallel.shard import (check_replicas, make_sharded_train_step,
+                              sharded_view_batch)
 from .state import init_train_state
 from .step import train_step
 
@@ -187,14 +189,23 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 pretrained_ply: str = "",
                 start_checkpoint: str = "",
                 checkpoint_interval: int = 0,
-                device="cuda"):
-    """Train one scene on one device.  ``views`` is a list of objects with
+                device="cuda", mesh=None):
+    """Train one scene on one device, or on this rank of a ``mesh``
+    (``parallel.mesh.Mesh``).  ``views`` is a list of objects with
     ``.camera`` (on ``device``) and ``.image/.mask/.depth/.name`` (numpy
     arrays or tensors); the reference view's image and depth are replaced
     by ``ref_image``/``ref_depth`` when given (train.py:354-365, 425-430).
     ``capacity`` is the starting instance capacity tier; ``callback(it,
     ts, aux)`` runs after each committed step.  Returns (TrainState,
-    TrainLog)."""
+    TrainLog).
+
+    With a mesh every rank runs this loop on its own card and holds the
+    whole state: an iteration is one sharded step over ``B = mesh.data``
+    views (stream positions ``(it-1)·B + j + 1``, the phase windows read
+    at ``it``; JAX loop.py:276-288, :359-411); the overflow decision is
+    collective and the densification draws the same keeps on every rank;
+    only rank 0 logs, writes metrics and checkpoints and calls
+    ``callback``; at the end the replicas are checked bit-equal."""
     ensure_fp32_matmuls()
     dev = resolve_device(device)
     m, opt = run.model, run.optim
@@ -207,8 +218,10 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
         attn_heads=opt.attn_head_num, attn_head_dim=opt.attn_head_dim,
         use_feat_bank=m.use_feat_bank)
     iters = iterations if iterations is not None else opt.iterations
+    main_rank = mesh is None or mesh.rank == 0
     if logger is None:
-        logger = get_logger(out_dir or ".")
+        logger = (get_logger(out_dir or ".") if main_rank
+                  else logging.getLogger(f"gscream_tpu_torch.rank{mesh.rank}"))
 
     scaffold = init_scaffold(points, cfg,
                              torch.Generator().manual_seed(run.seed),
@@ -226,7 +239,8 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
     from .metrics_log import MetricsLogger
     mlog = MetricsLogger(out_dir or ".",
                          wandb_project=os.environ.get(
-                             "GSCREAM_WANDB_PROJECT", ""))
+                             "GSCREAM_WANDB_PROJECT", "")) \
+        if main_rank else None
 
     start_it = 1
     if start_checkpoint:
@@ -281,19 +295,22 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
             order_cache[epoch] = list(r.permutation(n_views))
         return order_cache[epoch][pos]
 
-    def prepare(it: int) -> Dict:
-        """Host-side sampling for iteration ``it``, from (seed, it)."""
-        rng = np.random.default_rng(np.random.SeedSequence([run.seed, it]))
-        vi = view_for(it)
+    def sample_slot(p: int, phase_it: Optional[int] = None) -> Dict:
+        """Host-side sampling for stream position ``p``, from (seed, p);
+        the phase windows are read at ``phase_it`` (the optimizer step; a
+        sharded batch's B slots share it), by default ``p``."""
+        it_ = p if phase_it is None else phase_it
+        rng = np.random.default_rng(np.random.SeedSequence([run.seed, p]))
+        vi = view_for(p)
         v = dev_views[vi]
         # per-view cross-attention gating (train.py:445-447)
-        use_cross = (it > opt.start_crossattn_from
+        use_cross = (it_ > opt.start_crossattn_from
                      and (opt.enable_crossattn_refview > 0 if v["is_ref"]
                           else opt.enable_crossattn_otherview > 0))
         # after the first run_crossattn the reference's _anchor_feat is
         # detached for good (gaussian_model.py:556): the main Adam stops
         # updating feat on every view
-        feat_frozen = it > opt.start_crossattn_from and phase2_any
+        feat_frozen = it_ > opt.start_crossattn_from and phase2_any
         fg_box = zero_fg
         if v["is_ref"]:
             fg_box = _tensor(random_box_mask(rng, v["mask_np"], 1.5, 0.8,
@@ -303,19 +320,33 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
             box = sample_patch_in_mask_region(
                 rng, v["mask_np"], 256, opt.sampling_2D_small_ratio, h, w)
             cross_box = torch.tensor(box, dtype=torch.int32, device=dev)
-        return dict(it=it, vi=vi, fg_box=fg_box, cross_box=cross_box,
+        return dict(it=p, vi=vi, fg_box=fg_box, cross_box=cross_box,
                     use_cross=use_cross, feat_frozen=feat_frozen,
-                    accumulate=opt.start_stat < it < opt.update_until)
+                    accumulate=opt.start_stat < it_ < opt.update_until)
 
-    def run_step(rec: Dict) -> Dict:
-        """The step of ``rec``, re-run at a raised capacity tier from the
-        same state while its instance demand overflows (the reference's
-        resize-and-rerun contract, rasterize_points.cu:27-33)."""
-        nonlocal cap
-        v = dev_views[rec["vi"]]
-        while True:
-            t0 = time.time()
-            ts_new, aux = train_step(
+    def prepare(it: int) -> Dict:
+        """Iteration ``it``'s inputs: one slot, or on a mesh the B slots
+        ``(it-1)·B + j + 1`` as one ``ViewBatch`` (loop.py:359-385)."""
+        if mesh is None:
+            return sample_slot(it)
+        slots = [sample_slot((it - 1) * mesh.data + j + 1, phase_it=it)
+                 for j in range(mesh.data)]
+        vs = [dev_views[s_["vi"]] for s_ in slots]
+        batch = sharded_view_batch(
+            vs, fg_boxes=[s_["fg_box"] for s_ in slots],
+            is_ref=[v_["is_ref"] for v_ in vs],
+            cross_boxes=[s_["cross_box"] for s_ in slots],
+            cross_enable=[s_["use_cross"] for s_ in slots], device=dev)
+        return dict(slots[0], it=it, vis=[s_["vi"] for s_ in slots],
+                    batch=batch,
+                    use_cross=any(s_["use_cross"] for s_ in slots))
+
+    sharded_steps: Dict[int, Callable] = {}
+
+    def launch(rec: Dict, cap: int):
+        if mesh is None:
+            v = dev_views[rec["vi"]]
+            return train_step(
                 ts, v["camera"], v["image"], v["mask"], v["depth"],
                 rec["fg_box"], rec["cross_box"], cfg=cfg, opt=opt,
                 is_ref=v["is_ref"], use_crossattn=rec["use_cross"],
@@ -323,6 +354,22 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 accumulate=rec["accumulate"], white_bg=m.white_background,
                 spatial_lr_scale=spatial_lr_scale,
                 feat_frozen=rec["feat_frozen"])
+        if cap not in sharded_steps:
+            sharded_steps[cap] = make_sharded_train_step(
+                mesh, cfg, opt, cap, w, h, white_bg=m.white_background,
+                spatial_lr_scale=spatial_lr_scale)
+        return sharded_steps[cap](
+            ts, rec["batch"], use_crossattn=rec["use_cross"],
+            feat_frozen=rec["feat_frozen"], accumulate=rec["accumulate"])
+
+    def run_step(rec: Dict) -> Dict:
+        """The step of ``rec``, re-run at a raised capacity tier from the
+        same state while its instance demand overflows (the reference's
+        resize-and-rerun contract, rasterize_points.cu:27-33)."""
+        nonlocal cap
+        while True:
+            t0 = time.time()
+            ts_new, aux = launch(rec, cap)
             rec["dispatch_s"] = time.time() - t0
             rec["vals"] = aux.packed.tolist()
             n_inst = int(rec["vals"][2])
@@ -347,14 +394,20 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
         it, aux = rec["it"], rec["aux"]
         loss = float(rec["vals"][0])
         if not np.isfinite(loss):
+            if not main_rank:
+                raise NonFiniteLossError(
+                    f"loss became non-finite at iteration {it}")
             dump_nonfinite(out_dir or ".", rec, logger)
         log.losses.append(loss)
         log.iter_times.append(rec["dispatch_s"])
         log.steps.append(dict(
             it=it, view=rec["vi"], is_ref=dev_views[rec["vi"]]["is_ref"],
             use_cross=rec["use_cross"], cross_ok=bool(rec["vals"][4]),
-            instances=rec["n_inst"], capacity=rec["capacity"]))
+            instances=rec["n_inst"], capacity=rec["capacity"],
+            views=rec.get("vis", [rec["vi"]])))
         ts_new = rec["ts_new"]
+        if not main_rank:
+            return ts_new
         if it % 100 == 0 or it == iters:
             anchors = int(ts_new.scaffold.alive.sum())
             logger.info(
@@ -401,10 +454,14 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 alive_after=int(sc.alive.sum()),
                 grow_overflow=int(stats.grow_overflow)))
         # periodic autosave at a committed iteration boundary
-        if checkpoint_interval and it % checkpoint_interval == 0:
+        if checkpoint_interval and it % checkpoint_interval == 0 \
+                and main_rank:
             save_ckpt(it)
     if checkpoint_interval and iters % checkpoint_interval != 0 \
-            and iters >= start_it:
+            and iters >= start_it and main_rank:
         save_ckpt(iters)
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
+    if mesh is not None:
+        check_replicas(ts, mesh)
     return ts, log

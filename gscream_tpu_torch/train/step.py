@@ -164,12 +164,13 @@ def crossattn_update(ca, feat, tok: CrossTokens, ema: float, is_ref: bool,
     return new_feat[:C]
 
 
-def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
-                       bg, screen_zero, cfg: ScaffoldConfig, capacity: int):
-    """Decode + rasterize from explicit (differentiable) parameters;
-    returns (TiledOut, Decoded, Splats, Binning).  The binning goes
-    through the emission selector ``build_binning`` (``GSCREAM_EMIT``)
-    under ``torch.no_grad()`` (the JAX ``stop_gradient``,
+def splat_view(params, mlps, scaffold: ScaffoldState, camera: Camera,
+               screen_zero, cfg: ScaffoldConfig, capacity: int):
+    """Decode, preprocess and bin one view from explicit (differentiable)
+    parameters; returns (Decoded, Splats, the projected means plus
+    ``screen_zero``, Binning).  The binning goes through the emission
+    selector ``build_binning`` (``GSCREAM_EMIT``) under
+    ``torch.no_grad()`` (the JAX ``stop_gradient``,
     rasterize_tiled.py:1276-1277): gradients reach the gaussians only
     through the rasterizer's own arguments."""
     st = scaffold._replace(params=params, mlps=mlps)
@@ -185,10 +186,19 @@ def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
     with record_function("step/binning"), torch.no_grad():
         binning = build_binning(splats, dec.opacity, dec.color,
                                 dec.uncertainty, capacity, w, h)
+    return dec, splats, mean2d, binning
+
+
+def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
+                       bg, screen_zero, cfg: ScaffoldConfig, capacity: int):
+    """Decode + rasterize from explicit (differentiable) parameters;
+    returns (TiledOut, Decoded, Splats, Binning) (:func:`splat_view`)."""
+    dec, splats, mean2d, binning = splat_view(
+        params, mlps, scaffold, camera, screen_zero, cfg, capacity)
     with record_function("step/forward"):
         out = rasterize_tiled(mean2d, splats.conic, dec.opacity, dec.color,
-                              splats.depth, dec.uncertainty, binning, bg, w,
-                              h)
+                              splats.depth, dec.uncertainty, binning, bg,
+                              camera.width, camera.height)
     return out, dec, splats, binning
 
 
@@ -262,6 +272,22 @@ def phase2_masks(cross_ok: bool):
     }
 
 
+@torch.no_grad()
+def prefilter(scaffold: ScaffoldState, camera: Camera) -> Splats:
+    """The anchors projected as gaussians of their own scale: their
+    visibility (the densification statistics) and screen positions (the
+    phase-2 token sampling) (step.py:234-245)."""
+    p = scaffold.params
+    with record_function("step/prefilter"):
+        return preprocess(
+            p.anchor, torch.exp(p.scaling[:, :3]),
+            p.rotation / torch.clamp_min(torch.linalg.vector_norm(
+                p.rotation, dim=1, keepdim=True), 1e-12),
+            camera.w2c, camera.full_proj, camera.width, camera.height,
+            camera.tan_fovx, camera.tan_fovy, tile_w=TILE_W, tile_h=TILE_H,
+            active_mask=scaffold.alive)
+
+
 def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                midas_depth, fg_box_mask, cross_box=None, *,
                cfg: ScaffoldConfig, opt: OptimConfig, is_ref: bool,
@@ -288,16 +314,8 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     step1 = ts.step + 1
     p = scaffold.params
 
-    # --- prefilter: anchor visibility + projected positions ------------
-    with record_function("step/prefilter"), torch.no_grad():
-        pre = preprocess(
-            p.anchor, torch.exp(p.scaling[:, :3]),
-            p.rotation / torch.clamp_min(torch.linalg.vector_norm(
-                p.rotation, dim=1, keepdim=True), 1e-12),
-            camera.w2c, camera.full_proj, width, height, camera.tan_fovx,
-            camera.tan_fovy, tile_w=TILE_W, tile_h=TILE_H,
-            active_mask=scaffold.alive)
-        anchor_visible = (pre.radius > 0) & scaffold.alive
+    pre = prefilter(scaffold, camera)
+    anchor_visible = (pre.radius > 0) & scaffold.alive
 
     cross = None
     if use_crossattn:
@@ -397,13 +415,20 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
                    gt_mask, midas_depth, fg_box_mask, *, cfg: ScaffoldConfig,
                    opt: OptimConfig, is_ref: bool, capacity: int, masks,
                    white_bg: bool = False,
-                   cross: Optional[CrossTokens] = None) -> StepGrads:
+                   cross: Optional[CrossTokens] = None,
+                   render_loss=None, seed=None) -> StepGrads:
     """The loss of one view and its gradients with respect to the
     parameters of every group that ``masks`` updates and to the projected
     means (``value_and_grad`` of ``loss_fn``, step.py:255-274).  With
     ``cross`` (phase 2) the features are first EMA-mixed by the
     cross-attention, whose arrays enter autograd as leaves of their own,
-    as the anchor tensors do."""
+    as the anchor tensors do.
+
+    ``render_loss(params, mlps, screen_zero, bg) -> (loss, l1, Decoded,
+    Splats, Binning)`` takes the place of the render and
+    :func:`loss_terms` (the band path of ``parallel/shard.py``), and
+    ``seed`` is the cotangent the loss is differentiated with (1 by
+    default)."""
     dev = scaffold.alive.device
     bg = (torch.ones(3, device=dev) if white_bg
           else torch.zeros(3, device=dev))
@@ -420,12 +445,16 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
         render_params = anchor._replace(feat=feat_used)
     screen_zero = torch.zeros((cfg.capacity * cfg.n_offsets, 2),
                               device=dev, requires_grad=True)
-    out, dec, splats, binning = render_from_params(
-        render_params, scaffold.mlps, scaffold, camera, bg, screen_zero, cfg,
-        capacity)
-    with record_function("step/losses"):
-        loss, l1 = loss_terms(out, gt_image, gt_mask, midas_depth,
-                              fg_box_mask, opt, is_ref)
+    if render_loss is None:
+        out, dec, splats, binning = render_from_params(
+            render_params, scaffold.mlps, scaffold, camera, bg, screen_zero,
+            cfg, capacity)
+        with record_function("step/losses"):
+            loss, l1 = loss_terms(out, gt_image, gt_mask, midas_depth,
+                                  fg_box_mask, opt, is_ref)
+    else:
+        loss, l1, dec, splats, binning = render_loss(
+            render_params, scaffold.mlps, screen_zero, bg)
     # the autograd leaves: the fresh anchor and cross-attention tensors
     # and the MLP weights
     leaves = {}
@@ -439,7 +468,8 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
         leaves[name] = t
     with record_function("step/backward"):
         grads = torch.autograd.grad(
-            loss, list(leaves.values()) + [screen_zero], allow_unused=True)
+            loss, list(leaves.values()) + [screen_zero], grad_outputs=seed,
+            allow_unused=True)
     return StepGrads(
         loss=loss, l1=l1, screen=grads[-1], dec=dec, splats=splats,
         binning=binning,

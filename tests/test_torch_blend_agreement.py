@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.test_torch_common  # noqa: F401  (one torch thread: see there)
 from chip_smoke import F32_UNIT, blend_agreement, check_agreement
 from gscream_tpu_torch.ops import rasterize_tiled as rt
 

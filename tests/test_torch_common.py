@@ -12,6 +12,15 @@ import torch
 
 TW = TH = 32
 
+# One intra-op thread per test process.  The tier-1 run puts six xdist
+# workers on the machine's cores beside XLA's threads; torch's OpenMP
+# pool of one thread per core in every worker oversubscribes them, and
+# its threads spin while they wait: four concurrent runs of
+# tests/test_torch_blend_agreement.py took over 40 minutes for four of
+# their five tests at the default, 16 s in all at one thread each (7 s
+# and 9 s alone).  Every worker imports this module when it collects.
+torch.set_num_threads(1)
+
 
 def to_torch(x):
     """numpy / JAX array → CPU tensor (a writable copy)."""

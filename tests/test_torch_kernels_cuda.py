@@ -274,6 +274,40 @@ def test_tile_backward_close(dev, seed):
     _rows_close(got[:n], ref[:n])
 
 
+@pytest.mark.parametrize("n_bands", [2, 3])
+def test_tile_backward_band_zero_fills_head(dev, n_bands):
+    """A band's K2 (the tile ranges of its tile rows, which start past
+    slot 0, the last band extended by pad tiles) zero-fills the slots
+    before its first range as it does those past its last: the output,
+    first filled with NaN, equals the plain twin's zeros outside the band
+    and the full frame's K2 rows inside it, bit for bit."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.parallel.shard import (_band_geometry,
+                                                  _band_slices, pad_tiles)
+    (inst, pix, ts, tc, n_tiles), b = _backward_inputs(dev, 0)
+    full = rt.run_backward(inst, pix, ts, tc, n_tiles)
+    gx, gy, gy_pad, rows = _band_geometry(160, 96, n_bands)
+    bb = pad_tiles(b, 160, 96, n_bands)
+    pix = torch.cat([pix, pix.new_zeros(((gy_pad - gy) * gx,)
+                                        + pix.shape[1:])])
+    torch.cuda.synchronize()
+    for band in range(n_bands):
+        ts_b, tc_b, nl = _band_slices(bb, gx, rows, band)
+        pix_b = pix[band * nl:(band + 1) * nl]
+        junk = torch.full_like(inst, float("nan"))
+        del junk        # the allocator hands this block to K2's output
+        got = rt.run_backward(inst, pix_b, ts_b, tc_b, nl)
+        torch.cuda.synchronize()
+        ref = rt.run_backward_plain(inst, pix_b, ts_b, tc_b, nl)
+        lo, hi = int(ts_b[0]), int(ts_b[-1] + tc_b[-1])
+        assert band == 0 or lo > 0
+        assert torch.equal(got[:lo], ref[:lo]) and not got[:lo].any()
+        assert torch.equal(got[hi:], ref[hi:]) and not got[hi:].any()
+        assert torch.equal(got[lo:hi], full[lo:hi])
+        if hi > lo:
+            _rows_close(got[lo:hi], ref[lo:hi])
+
+
 # scenes for the schedule, the batching and the early stops of K1 and K2:
 # one tile under 5,000 faint gaussians (>= 4,096 instances: many batches,
 # the heaviest tile first), opacities near 0.99 (pixels, warps and whole

@@ -18,12 +18,23 @@ A NeRF-synthetic (Blender) scene is recognised by its
 It trains on the GPU (``--device cpu`` runs the plain versions of the
 kernels), writes ``cfg.json``, ``code_snapshot.zip``, ``input.ply``,
 ``cameras.json``, ``metrics.jsonl``, the anchors and decoders under
-``point_cloud/iteration_<N>/`` (which ``render_torch.py`` loads) and the
-full train state as ``checkpoint``; at each of ``--test_iterations`` it
+``point_cloud/iteration_<N>/`` (which ``render_torch.py`` loads), the
+full train state as ``checkpoint`` and each iteration's loss, step and
+the loop's events as ``train_log.json``; at each of ``--test_iterations`` it
 logs the test split's PSNR (and TensorBoard image grids); then it
 renders the test split (and, with ``--render_spiral``, a SPIN-NeRF
 scene's spiral path) and, unless ``--skip_eval``, evaluates the test
 renders into ``results.json`` and ``per_view.json``.
+
+On several cards, one process per card over a (data, tiles) mesh (views
+per step × bands of tile rows per view), started alike on every rank:
+
+    torchrun --nproc_per_node 4 train_torch.py --synthetic \
+        --mesh_data 2 --mesh_tiles 2 --model_path output/synthetic
+
+or with ``--dist_coordinator HOST:PORT --dist_nprocs 4 --dist_pid I`` per
+process (``--dist_backend gloo`` lets ranks share a card).  Rank 0 writes
+the run's files, renders and evaluates.
 """
 from __future__ import annotations
 
@@ -57,6 +68,12 @@ def parse_args(argv=None):
                  "crossattn_lr_final", "enable_crossattn_refview",
                  "enable_crossattn_otherview"):
         p.add_argument(f"--{name}", type=float, default=getattr(d, name))
+    # the densification schedule (statistics from start_stat; adjust
+    # every update_interval iterations strictly between update_from and
+    # update_until)
+    for name in ("start_stat", "update_from", "update_interval",
+                 "update_until"):
+        p.add_argument(f"--{name}", type=int, default=getattr(d, name))
     p.add_argument("-r", "--resolution", type=int, default=-1)
     p.add_argument("--anchor_capacity", type=int, default=1 << 17)
     p.add_argument("--instance_capacity", type=int, default=1 << 20)
@@ -80,21 +97,64 @@ def parse_args(argv=None):
                         "scenes)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
+    # multi-GPU training over a (data, tiles) mesh: one process per card,
+    # started with the same flags (see gscream_tpu_torch/parallel/);
+    # torchrun's environment works in place of the --dist_ flags
+    p.add_argument("--dist_coordinator", default="",
+                   help="host:port of rank 0 (enables multi-process mode)")
+    p.add_argument("--dist_nprocs", type=int, default=1,
+                   help="the world size: one process per card")
+    p.add_argument("--dist_pid", type=int, default=0,
+                   help="this process's rank")
+    p.add_argument("--dist_backend", default="",
+                   help="nccl (default on cuda; one card per rank) or gloo "
+                        "(default on cpu; ranks may share a card)")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="views per step (the data axis); with --mesh_tiles "
+                        "routes training through the sharded step. 0 = "
+                        "auto when distributed (every rank), off otherwise")
+    p.add_argument("--mesh_tiles", type=int, default=0,
+                   help="bands of tile rows each view is rasterized in")
     return p.parse_args(argv)
 
 
 SYNTHETIC = dict(n_views=6, n_gauss=300)   # train.py's synthetic scene
 
 
-def synthetic_scene(model_path: str, size: int, seed: int, device):
+def synthetic_scene(model_path: str, size: int, seed: int, device,
+                    record: bool = True):
     """The synthetic scene (``train.py``'s: 6 views of 300 gaussians),
-    its parameters recorded in ``<model>/synthetic.json`` so that
-    ``render_torch.py --synthetic`` rebuilds it."""
+    its parameters recorded (``record``) in ``<model>/synthetic.json`` so
+    that ``render_torch.py --synthetic`` rebuilds it."""
     from gscream_tpu_torch.data.synthetic import make_scene
     kw = dict(SYNTHETIC, width=size, height=size, seed=seed)
-    with open(os.path.join(model_path, "synthetic.json"), "w") as f:
-        json.dump(kw, f)
+    if record:
+        with open(os.path.join(model_path, "synthetic.json"), "w") as f:
+            json.dump(kw, f)
     return make_scene(device=device, **kw)
+
+
+def start_mesh(args):
+    """(device, mesh, rank): this process's rank of a multi-process run
+    (``--dist_*`` or torchrun's environment) and the (data, tiles) mesh
+    (``--mesh_data/--mesh_tiles``, else every rank when distributed);
+    (the ``--device``, None, 0) for one process."""
+    from gscream_tpu_torch.device import resolve_device
+    from gscream_tpu_torch.parallel.distributed import init_distributed
+    from gscream_tpu_torch.parallel.mesh import auto_mesh, make_mesh
+    dev = init_distributed(args.dist_coordinator, args.dist_nprocs,
+                           args.dist_pid, backend=args.dist_backend or None,
+                           device=args.device)
+    if args.mesh_data or args.mesh_tiles:
+        mesh = make_mesh(data=max(args.mesh_data, 1),
+                         tiles=max(args.mesh_tiles, 1))
+    elif dev is not None:
+        mesh = auto_mesh()
+    else:
+        mesh = None
+    if dev is None:
+        dev = resolve_device(args.device)
+    return dev, mesh, 0 if mesh is None else mesh.rank
 
 
 def make_eval_callback(test_views, run, cfg, capacity: int, logger):
@@ -149,9 +209,21 @@ def make_eval_callback(test_views, run, cfg, capacity: int, logger):
 
 def main(argv=None):
     args = parse_args(argv)
+    dev, mesh, rank = start_mesh(args)
+    try:
+        train_and_evaluate(args, dev, mesh, rank)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train_and_evaluate(args, dev, mesh, rank: int):
+    """Train on this rank; rank 0 alone writes the run's files, renders
+    and evaluates."""
+    import logging
     from gscream_tpu_torch.config import (ModelConfig, OptimConfig,
                                           RunConfig, save_config)
-    from gscream_tpu_torch.device import resolve_device
     from gscream_tpu_torch.model.io import (save_anchors_ply,
                                             save_checkpoint, save_mlps_npz,
                                             write_scene_artifacts)
@@ -159,8 +231,6 @@ def main(argv=None):
     from gscream_tpu_torch.train.loop import get_logger, train_scene
     from gscream_tpu_torch.train.render_sets import render_set
     from gscream_tpu_torch.utils.snapshot import save_runtime_code
-
-    dev = resolve_device(args.device)
     run = RunConfig(
         model=ModelConfig(
             feat_dim=args.feat_dim, n_offsets=args.n_offsets,
@@ -183,23 +253,28 @@ def main(argv=None):
                 "refer_depth_lr_smooth", "other_depth_lr",
                 "other_depth_lr_smooth", "crossattn_lr_init",
                 "crossattn_lr_final", "enable_crossattn_refview",
-                "enable_crossattn_otherview")}),
+                "enable_crossattn_otherview", "start_stat", "update_from",
+                "update_interval", "update_until")}),
         test_iterations=tuple(args.test_iterations),
         seed=args.seed)
-    os.makedirs(args.model_path, exist_ok=True)
-    save_config(run, os.path.join(args.model_path, "cfg.json"))
-    logger = get_logger(args.model_path)
-    # the run's code backup (reference saveRuntimeCode, train.py:1053-1064)
-    try:
-        save_runtime_code(args.model_path)
-    except OSError as e:             # never let bookkeeping kill a run
-        logger.warning("code snapshot failed: %s", e)
+    if rank == 0:
+        os.makedirs(args.model_path, exist_ok=True)
+        save_config(run, os.path.join(args.model_path, "cfg.json"))
+        logger = get_logger(args.model_path)
+        # the run's code backup (reference saveRuntimeCode,
+        # train.py:1053-1064)
+        try:
+            save_runtime_code(args.model_path)
+        except OSError as e:         # never let bookkeeping kill a run
+            logger.warning("code snapshot failed: %s", e)
+    else:
+        logger = logging.getLogger(f"gscream_tpu_torch.rank{rank}")
 
     ref_image = ref_depth = None
     sd = None
     if args.synthetic:
         scene = synthetic_scene(args.model_path, args.synthetic_size,
-                                args.seed, dev)
+                                args.seed, dev, record=rank == 0)
         views, ref_index, points = scene.views, scene.ref_index, scene.points
         extent = 1.0
         test_views = views[:2]
@@ -243,8 +318,13 @@ def main(argv=None):
 
     logger.info("training %d views, %d points, %d iters on %s", len(views),
                 len(points), args.iterations, dev)
-    write_scene_artifacts(args.model_path, list(test_views) + list(views),
-                          points)
+    if mesh is not None:
+        from gscream_tpu_torch.parallel.distributed import process_info
+        logger.info("mesh: data=%d tiles=%d; rank %d of %d (backend %s)",
+                    mesh.data, mesh.tiles, *process_info())
+    if rank == 0:
+        write_scene_artifacts(args.model_path,
+                              list(test_views) + list(views), points)
     m = run.model
     cfg = ScaffoldConfig(
         feat_dim=m.feat_dim, n_offsets=m.n_offsets,
@@ -261,7 +341,10 @@ def main(argv=None):
                                     args.instance_capacity, logger),
         pretrained_ply=args.pretrained_ply,
         start_checkpoint=args.start_checkpoint,
-        checkpoint_interval=args.checkpoint_interval, device=dev)
+        checkpoint_interval=args.checkpoint_interval, device=dev,
+        mesh=mesh)
+    if rank != 0:
+        return
 
     ply_dir = os.path.join(args.model_path, "point_cloud",
                            f"iteration_{args.iterations}")
@@ -270,6 +353,9 @@ def main(argv=None):
     save_mlps_npz(os.path.join(ply_dir, "mlp_checkpoints.npz"),
                   ts.scaffold.mlps)
     save_checkpoint(os.path.join(args.model_path, "checkpoint"), ts)
+    with open(os.path.join(args.model_path, "train_log.json"), "w") as f:
+        json.dump({"losses": log.losses, "events": log.events,
+                   "steps": log.steps}, f, default=lambda x: x.item())
     logger.info("trained %d iterations: last loss %.5f, %d anchors, "
                 "events %s", args.iterations,
                 log.losses[-1] if log.losses else float("nan"),
