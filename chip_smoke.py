@@ -94,13 +94,37 @@ catches its own failure):
     the single-device ``train_step`` (TRAJ_*), (2, 1)'s first loss to
     the mean of its views' losses (DP_LOSS_RTOL), the replicas bit-equal, wall ms per
     step and launches per rank-step; then ``train_torch.py --synthetic
-    --mesh_tiles 2`` as two ranks against one process.
+    --mesh_tiles 2`` as two ranks against one process;
+(i) the JAX package's other configurations, on a fresh copy of the
+    model at view 0 of the training targets: raw K1 and K2
+    (``GSCREAM_KERNEL_COEFF=1``) on the arguments one ``loss_and_grads``
+    call gave them, against their plain twins (ATOL and
+    MAX_FLIP_FRACTION, GRAD_* per lane), against legacy K1 and K2 on the
+    legacy records of the same binning (bit-equal by design: reported,
+    else held to the same tolerances), timed in turns with them, then per
+    band for 2 and 4 bands with ``tile_base`` (the stitched bands bit-equal
+    to the whole frame); the counting passes' row-tight and full-rect
+    instance counts; for each mode of MODES (raw records, ``ROW_TIGHT=0``,
+    ``TIGHT_CULL=0``, ``precise_sort=False``, ``SORT_FUSED=1``,
+    ``loss_dtype="bfloat16"``, ``SCATTER_REDUCE=1``) the render and one
+    ``loss_and_grads`` call, sized by its own counting pass, against the
+    default's (raw, full-rect and scatter gradients within GRAD_*, the
+    fused sort bit-equal, the quantized sort's render held to the plain
+    twins on its own binning and its distance to the precise one
+    reported, the bfloat16 head within ``tests/test_bf16_losses.py``'s
+    bounds on that test's inputs); one sharded step at mesh (1, 2) in two
+    spawned ranks with raw records against legacy; then 3 ``train_step``
+    calls per mode with the launch counters reset just before each and
+    read just after (each mode launches exactly its route's kernels once
+    a step), their wall ms and instances.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
-its path: K7-K9 from phase (e), the others from phase (d), with the
+its path: K7-K9 from phase (e), raw K1 and K2 from phase (i), the others
+from phase (d), with the
 render path's, each training route's, the loop's and phase (g)'s
 launch counts (``launches_eval``, ``launches_spiral``), phase (h)'s
-summed over its ranks and meshes (``launches_sharded``) and the render
+summed over its ranks and meshes (``launches_sharded``), phase (i)'s
+over its steps (``launches_modes``) and the render
 path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
 profiler's device time and launches per call; K1's and K2's lines also
 carry the tile-count
@@ -113,10 +137,11 @@ them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
-non-zero without printing a result.  ``--phase h`` builds the kernels
-and runs phase (h) alone (on a host with two or more cards its ranks
-take a card each, over NCCL), printing its launches and the card's line
-but no result line.
+non-zero without printing a result.  ``--phase h`` (``--phase i``)
+builds the kernels and runs phase (h) (phase (i)) alone (on a host with
+two or more cards phase (h)'s ranks take a card each, over NCCL),
+printing its launches (phase (i): raw K1's and K2's lines too) and the
+card's line but no result line.
 """
 from __future__ import annotations
 
@@ -478,12 +503,12 @@ def small_splats(device):
 def instance_demand(scaffold, cfg, cam):
     """The capacity this view's emission needs (``overflow_demand``),
     from one counting pass (``bench.py::_count_instances``)."""
-    from gscream_tpu_torch.ops.binning import ROW_RATIO, emission_counts
+    from gscream_tpu_torch.ops.binning import emission_counts, row_ratio
     import torch
     with torch.no_grad():
         _, sp = splats_of(scaffold, cfg, cam)
         ni, nr = emission_counts(sp, 32, 32)
-    return max(int(ni), ROW_RATIO * int(nr))
+    return max(int(ni), row_ratio() * int(nr))
 
 
 def splats_of(scaffold, cfg, cam):
@@ -653,7 +678,8 @@ def tile_stats(tile_count):
 
 def ptxas_stats(log: str, kernel: str):
     """Registers, static shared memory and spills of the ``__global__``
-    function ``kernel`` from an ``nvcc -Xptxas -v`` log."""
+    function whose mangled name matches the pattern ``kernel``, from an
+    ``nvcc -Xptxas -v`` log."""
     import re
     stats, current = {}, None
     for ln in log.splitlines():
@@ -662,7 +688,7 @@ def ptxas_stats(log: str, kernel: str):
         if m:
             current = m.group(1)
             continue
-        if current is None or kernel not in current:
+        if current is None or not re.search(kernel, current):
             continue
         for key, pat in (("registers", r"Used (\d+) registers"),
                          ("smem_bytes", r"(\d+) bytes smem"),
@@ -782,8 +808,12 @@ def check_agreement(inst, tile_start, tile_count, n_tiles, forward,
 
 PARENT = {}
 NOCULL = {}
-TILE_SYMBOLS = {"rasterize_fwd": ("gs_tile_forward", "tile_forward_kernel"),
-                "rasterize_bwd": ("gs_tile_backward", "tile_backward_kernel")}
+# the legacy kernel's name in ptxas's log: a template instance since raw
+# records came (``ILb0E``), a plain function in an earlier tree (``E``)
+TILE_SYMBOLS = {"rasterize_fwd": ("gs_tile_forward",
+                                  r"tile_forward_kernel(ILb0E|E)"),
+                "rasterize_bwd": ("gs_tile_backward",
+                                  r"tile_backward_kernel(ILb0E|E)")}
 
 
 def nvcc_start(src, so, extra=()):
@@ -1284,7 +1314,9 @@ def kernel_slots():
             (bn, "expand1", em.expand1_plain),
             (bn, "expand2", em.expand2_plain),
             (rt, "pack_columns", sh.pack_columns_plain),
-            (rt, "segment_reduce_rows", rt.segment_reduce_rows_plain)]
+            (rt, "segment_reduce_rows", rt.segment_reduce_rows_plain),
+            (rt, "run_forward_raw", rt.run_forward_raw_plain),
+            (rt, "run_backward_raw", rt.run_backward_raw_plain)]
 
 
 class swap_kernels:
@@ -2851,6 +2883,557 @@ def sharded_phase(dev, cams, targets):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase (i): the JAX package's other configurations on the card
+
+# the kernels each mode's step launches once (by their names in
+# launch_counters); the others must not launch in it
+RAW_ROUTE = ("tile_forward_raw", "tile_backward_raw", "segment_reduce",
+             "unpack_columns", "expand_gauss_rows", "expand_rows")
+FULL_RECT_ROUTE = ("tile_forward", "tile_backward", "segment_reduce",
+                   "unpack_columns")
+SCATTER_ROUTE = ("tile_forward", "tile_backward", "expand_gauss_rows",
+                 "expand_rows")
+# (label, environment, OptimConfig fields, train_step keywords, route)
+MODES = (
+    ("default", {}, {}, {}, DEFAULT_ROUTE),
+    ("GSCREAM_KERNEL_COEFF=1", {"GSCREAM_KERNEL_COEFF": "1"}, {}, {},
+     RAW_ROUTE),
+    ("GSCREAM_ROW_TIGHT=0", {"GSCREAM_ROW_TIGHT": "0"}, {}, {},
+     FULL_RECT_ROUTE),
+    ("GSCREAM_TIGHT_CULL=0", {"GSCREAM_TIGHT_CULL": "0"}, {}, {},
+     FULL_RECT_ROUTE),
+    ("precise_sort=False", {}, {}, {"precise_sort": False}, DEFAULT_ROUTE),
+    ("GSCREAM_SORT_FUSED=1", {"GSCREAM_SORT_FUSED": "1"}, {}, {},
+     DEFAULT_ROUTE),
+    ('loss_dtype="bfloat16"', {}, {"loss_dtype": "bfloat16"}, {},
+     DEFAULT_ROUTE),
+    ("GSCREAM_SCATTER_REDUCE=1", {"GSCREAM_SCATTER_REDUCE": "1"}, {}, {},
+     SCATTER_ROUTE),
+)
+MODE_STEPS = 3          # phase (i): train_step calls per mode
+# the modes whose binning or records differ from the default's: their
+# render is also held to the render through the plain twins
+PLAIN_CHECKED = ("GSCREAM_KERNEL_COEFF=1", "GSCREAM_ROW_TIGHT=0",
+                 "GSCREAM_TIGHT_CULL=0", "precise_sort=False")
+# raw K1 and K2 turn each staged record into the legacy one: per (record,
+# tile) 2 subtractions for the tile-local centre, 12 float32 operations for
+# k0..k2, 2 for k3 and k5 (k4 is a negation), 2 roundings and 2
+# subtractions for the shifts
+RAW_OPS_RECORD = 20
+# the bfloat16 loss head against float32 (tests/test_bf16_losses.py): the
+# loss within 2%, the gradients to the rendered colour and depth each at a
+# cosine above 0.995 and within 5% of their norm
+BF16_LOSS_RTOL = 2e-2
+BF16_COS = 0.995
+BF16_NORM_REL = 5e-2
+
+
+def raw_kernel_lines(g, args, label):
+    """Raw K1 and K2 at view 0 on the arguments one ``loss_and_grads`` call
+    under GSCREAM_KERNEL_COEFF=1 gave them: against their plain twins
+    (K1 within ATOL and MAX_FLIP_FRACTION, K2 per lane within GRAD_*),
+    against legacy K1 and K2 on the legacy records of the same binning
+    (bit-equal by design; reported), a rerun bit-equal; timed in turns
+    with legacy K1 and K2.  Returns their kernel lines."""
+    import torch
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    k1 = args["run_forward_raw"]
+    k2 = args["run_backward_raw"]
+    raw, ts, tc, n_tiles, gx, base = k1
+    pix = k2[1]
+    require(base == 0 and gx == -(-WIDTH // 32),
+            f"raw K1 got tile_base {base}, grid_x {gx}")
+    sp, dec, b = g.splats, g.dec, g.binning
+    with torch.no_grad():
+        legacy = rt.pack_instance_data(sp.mean2d, sp.conic, dec.opacity,
+                                       dec.color, sp.depth, dec.uncertainty,
+                                       b, gx)
+    n = min(int(b.num_instances), raw.shape[0])
+    out1 = rt.run_forward_raw(*k1)
+    out2 = rt.run_backward_raw(*k2)
+    sync()
+    require(torch.equal(out1, rt.run_forward_raw(*k1)) and torch.equal(
+        out2, rt.run_backward_raw(*k2)), f"raw K1/K2 rerun differs ({label})")
+    eq1 = torch.equal(out1, rt.run_forward(legacy, ts, tc, n_tiles))
+    eq2 = torch.equal(out2, rt.run_backward(legacy, pix, ts, tc, n_tiles))
+    p1 = rt.run_forward_raw_plain(*k1)
+    p2 = rt.run_backward_raw_plain(*k2)
+    sync()
+    err1, bad1 = compare_images(out1, p1)
+    require(bad1 <= MAX_FLIP_FRACTION and bool(torch.isfinite(out1).all()),
+            f"raw K1 differs from its plain twin ({label}): max abs "
+            f"{err1}, {bad1:.2e} beyond tolerance")
+    require(not bool(out2[n:].any()), "raw K2 left slots past the live "
+            "instances non-zero")
+    err2, share2 = 0.0, 0.0
+    for lane in range(16):
+        e, sh_ = grad_close(out2[:n, lane], p2[:n, lane],
+                            f"raw K2 lane {lane} ({label})")
+        err2, share2 = max(err2, e), max(share2, sh_)
+    log(f"{label}: raw K1 vs plain twin max abs err {err1:.3e}, beyond "
+        f"tolerance {bad1:.2e}; raw K2 vs plain twin max abs err "
+        f"{err2:.3e}, worst lane beyond tolerance {share2:.2e}; both "
+        f"rerun bit-equal; vs legacy K1/K2 on the same binning: K1 "
+        f"{'bit-equal' if eq1 else 'NOT bit-equal'}, K2 "
+        f"{'bit-equal' if eq2 else 'NOT bit-equal'}")
+    if not (eq1 and eq2):
+        e, bad = compare_images(out1, rt.run_forward(legacy, ts, tc,
+                                                     n_tiles))
+        require(bad <= MAX_FLIP_FRACTION, f"raw K1 vs legacy K1: {bad:.2e}")
+        leg2 = rt.run_backward(legacy, pix, ts, tc, n_tiles)
+        for lane in range(16):
+            grad_close(out2[:n, lane], leg2[:n, lane],
+                       f"raw K2 vs legacy K2 lane {lane}")
+        log(f"  raw vs legacy K1 max abs err {e:.3e}")
+
+    work = k1_work(legacy, ts, tc)
+    derive = RAW_OPS_RECORD * work["records"]
+    f1 = (K1_OPS_EVAL * work["eval"] + K1_OPS_EXP * work["exp"]
+          + K1_OPS_ALPHA * work["alpha"] + K1_OPS_BLEND * work["blend"]
+          + derive)
+    f2 = (K1_OPS_EVAL * work["eval"] + K1_OPS_EXP * work["exp"]
+          + K1_OPS_ALPHA * work["alpha"] + K2_OPS_APPLIED * work["blend"]
+          + derive)
+    cap = raw.shape[0]
+    b1 = (work["records"] * K1_RECORD_BYTES + n_tiles * 2 * 4
+          + n_tiles * K1_OUT_ROWS * 1024 * 4)
+    b2 = (work["records"] * K1_RECORD_BYTES + n_tiles * 2 * 4
+          + n_tiles * K2_PIX_ROWS * 1024 * 4 + cap * 64)
+    specs = (
+        ("tile_forward_raw", "K1 raw", lambda: rt.run_forward_raw(*k1),
+         lambda: rt.run_forward_raw_plain(*k1),
+         lambda: rt.run_forward(legacy, ts, tc, n_tiles), "rasterize_fwd.cu",
+         "gscream_tpu/ops/rasterize_tiled.py:378", err1, f1, b1,
+         f"max abs err {err1:.3e}, beyond tolerance {bad1:.2e}", eq1,
+         "gs_tile_forward_raw_attributes", "rasterize_fwd", 20),
+        ("tile_backward_raw", "K2 raw", lambda: rt.run_backward_raw(*k2),
+         lambda: rt.run_backward_raw_plain(*k2),
+         lambda: rt.run_backward(legacy, pix, ts, tc, n_tiles),
+         "rasterize_bwd.cu", "gscream_tpu/ops/rasterize_tiled.py:546", err2,
+         f2, b2, f"max abs err {err2:.3e}, worst lane beyond tolerance "
+         f"{share2:.2e}", eq2, "gs_tile_backward_raw_attributes",
+         "rasterize_bwd", 10),
+    )
+    results = {}
+    for (name, tag, kern, plain, leg, src, repl, e, flops, moved, check, eq,
+         attrs, lib, reps) in specs:
+        ops_s = max(flops / F32_OPS_PER_S, work["exp"] / EX2_PER_S)
+        bytes_s = moved / HBM_BYTES_PER_S
+        # raw and legacy in turns: raw, legacy, legacy, raw
+        turns = [cuda_ms(fn, reps=reps, warmup=2)
+                 for fn in (kern, leg, leg, kern)]
+        plain_ms = cuda_ms(plain, reps=1, rounds=1)
+        rec = {
+            "name": f"{tag} {name}", "route": "cuda",
+            "source": f"gscream_tpu_torch/csrc/{src}", "replaces": repl,
+            "shapes": label, "max_abs_err": e,
+            "ms": float(np.median([turns[0], turns[3]])),
+            "legacy_ms": float(np.median([turns[1], turns[2]])),
+            "turns_ms": turns, "plain_ms": plain_ms,
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s > bytes_s else "bytes",
+            "library_ms": None, "check": check,
+            "bit_equal_to_legacy": eq, "flops": flops, "bytes": moved,
+            "derive_flops": derive,
+            "attrs": kernel_attributes(lib, attrs)}
+        extra = device_times(rec, kern)
+        results[name] = rec
+        log(f"{tag} {name} at {label}: kernel {rec['ms']:.4f} ms, legacy "
+            f"{rec['legacy_ms']:.4f} ms (in turns {[round(t, 4) for t in turns]}"
+            f"), plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {flops} float32 operations, "
+            f"{derive} of them deriving the records; {moved} bytes)"
+            f"{extra}; attributes {rec['attrs']} [{SMI}]")
+    return results, (raw, ts, tc, n_tiles, pix, out1, out2, b)
+
+
+def raw_bands(raw_args, label):
+    """Raw K1 and K2 per band for 2 and 4 bands, each band's first global
+    tile as ``tile_base``: the stitched K1 bands bit-equal to the whole
+    frame's raw K1 (pad tiles empty), each band's K2 rows bit-equal to the
+    whole frame's in the band's slots and zero outside them."""
+    import torch
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.parallel.shard import (_band_geometry,
+                                                  _band_slices, pad_tiles)
+    raw, ts, tc, n_tiles, pix, full1, full2, b = raw_args
+    for nb in SHARD_BANDS:
+        gx, gy, gy_pad, rows = _band_geometry(WIDTH, HEIGHT, nb)
+        bb = pad_tiles(b, WIDTH, HEIGHT, nb)
+        pix_pad = torch.cat([pix, pix.new_zeros(((gy_pad - gy) * gx,)
+                                                + pix.shape[1:])])
+        parts = []
+        for band in range(nb):
+            ts_b, tc_b, nl = _band_slices(bb, gx, rows, band)
+            parts.append(rt.run_forward_raw(raw, ts_b, tc_b, nl, gx,
+                                            band * nl))
+            rows_b = rt.run_backward_raw(raw, pix_pad[band * nl:
+                                                      (band + 1) * nl],
+                                         ts_b, tc_b, nl, gx, band * nl)
+            sync()
+            lo, hi = int(ts_b[0]), int(ts_b[-1] + tc_b[-1])
+            require(torch.equal(rows_b[lo:hi], full2[lo:hi]),
+                    f"{nb} bands, band {band}: raw K2 rows differ from the "
+                    "whole frame's")
+            require(not bool(rows_b[:lo].any()) and not bool(
+                rows_b[hi:].any()), f"{nb} bands, band {band}: raw K2 left "
+                "a slot outside the band non-zero")
+        tiles = torch.cat(parts)
+        require(torch.equal(tiles[:n_tiles], full1), f"{nb} bands: the "
+                "stitched raw K1 bands differ from the whole frame")
+        pad = tiles[n_tiles:]
+        require(bool((pad[:, 6] == 1).all()) and not bool(pad[:, :6].any()),
+                f"{nb} bands: a pad tile is not empty")
+        log(f"{label}, {nb} bands ({rows} tile rows each, "
+            f"{(gy_pad - gy) * gx} pad tiles): raw K1 with tile_base "
+            "stitched bit-equal to the whole frame, pad tiles empty; raw K2 "
+            "per band bit-equal in the band's slots and zero outside")
+
+
+def mode_view(scaffold, cfg, cam, target, env, opt_kw, step_kw,
+              plain=False):
+    """Under one mode: the capacity a counting pass sizes at ``cam`` (and
+    the demand), the render (with ``plain``, held to the render through
+    the plain twins on the card within ATOL and MAX_FLIP_FRACTION) and one
+    ``loss_and_grads`` call there."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.step import (loss_and_grads, phase1_masks,
+                                              render_from_params)
+    with environ(**env):
+        demand = instance_demand(scaffold, cfg, cam)
+        cap = capacity_tier(demand)
+        with torch.no_grad():
+            bg = torch.zeros(3, device=scaffold.alive.device)
+            zero = torch.zeros((cfg.capacity * cfg.n_offsets, 2),
+                               device=bg.device)
+
+            def render():
+                return render_from_params(scaffold.params, scaffold.mlps,
+                                          scaffold, cam, bg, zero, cfg, cap,
+                                          **step_kw)[0]
+            out = render()
+            if plain:
+                with plain_kernels():
+                    out_plain = render()
+        g = loss_and_grads(scaffold, cam, *target, cfg=cfg,
+                           opt=OptimConfig(**opt_kw), is_ref=True,
+                           capacity=cap, masks=phase1_masks(False),
+                           **step_kw)
+    if not plain:
+        return demand, cap, out, g, ""
+    err, bad = compare_images(out.color, out_plain.color)
+    require(bad <= MAX_FLIP_FRACTION, f"{step_kw or env}: the render vs the "
+            f"plain twins' {bad:.2e} beyond tolerance")
+    return demand, cap, out, g, (f"; render vs the plain twins max abs err "
+                                 f"{err:.3e}, beyond tolerance {bad:.2e}")
+
+
+def bf16_terms(out, target, is_ref=True):
+    """``loss_terms`` of ``out`` at float32 and at bfloat16: {dtype: (loss,
+    its gradients to the colour and the depth)}."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.train.step import loss_terms
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        c = out.color.detach().clone().requires_grad_()
+        d = out.depth.detach().clone().requires_grad_()
+        loss, _ = loss_terms(out._replace(color=c, depth=d), *target,
+                             OptimConfig(loss_dtype=dt), is_ref)
+        res[dt] = (loss.item(), torch.autograd.grad(loss, (c, d)))
+    return res
+
+
+def bf16_agreement(res):
+    """(loss rel, [(cosine, norm error) for colour, depth]) of bfloat16
+    against float32 in :func:`bf16_terms`' result."""
+    l32, g32 = res["float32"]
+    l16, g16 = res["bfloat16"]
+    out = []
+    for a, b in zip(g16, g32):
+        a, b = a.double(), b.double()
+        out.append((float((a * b).sum() / (a.norm() * b.norm())),
+                    float((a - b).norm() / b.norm())))
+    return abs(l16 - l32) / abs(l32), out
+
+
+def bf16_head(out, target):
+    """The bfloat16 loss head on the card.  ``tests/test_bf16_losses.py``'s
+    check on its own inputs (seeded uniform images at 128×96, both view
+    kinds): the loss within BF16_LOSS_RTOL, the gradients to the colour
+    and the depth within BF16_COS and BF16_NORM_REL.  Then the full-width
+    render ``out``: the loss within BF16_LOSS_RTOL, the gradients'
+    agreement reported — on a smooth render the SSIM's E[x²] − μ² cancels
+    in bfloat16, in the JAX package as in the port, and its gradient
+    keeps little of its direction.  Returns a phrase for the log."""
+    import torch
+    from gscream_tpu_torch.ops.rasterize_tiled import TiledOut
+    rng = np.random.default_rng(0)
+    h, w = 96, 128
+    dev = out.color.device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    color = t(rng.uniform(0, 1, (h, w, 3)))
+    depth = t(rng.uniform(2, 8, (h, w)))
+    gt = t(rng.uniform(0, 1, (3, h, w)))
+    mask = torch.zeros((1, h, w), device=dev)
+    mask[0, 20:60, 30:90] = 1.0
+    midas = t(rng.uniform(0, 1, (1, h, w)))
+    small = TiledOut(color, depth, torch.zeros_like(depth),
+                     torch.zeros_like(depth))
+    phrases = []
+    for is_ref in (True, False):
+        rel, grads = bf16_agreement(bf16_terms(
+            small, (gt, mask, midas, mask[0]), is_ref))
+        require(rel <= BF16_LOSS_RTOL and all(
+            c > BF16_COS and n <= BF16_NORM_REL for c, n in grads),
+            f"bfloat16 loss head on tests/test_bf16_losses.py's inputs "
+            f"(is_ref {is_ref}): loss rel {rel}, gradients {grads}")
+        phrases.append(f"is_ref {is_ref} loss rel {rel:.2e}, colour/depth "
+                       "(cosine, norm error) "
+                       f"{[(round(c, 6), round(n, 4)) for c, n in grads]}")
+    rel, grads = bf16_agreement(bf16_terms(out, target))
+    require(rel <= BF16_LOSS_RTOL, f"bfloat16 loss head at full width: "
+            f"loss rel {rel}")
+    return ("bfloat16 vs float32 on tests/test_bf16_losses.py's inputs: "
+            + "; ".join(phrases) + f"; on the full-width render: loss rel "
+            f"{rel:.2e}, colour/depth (cosine, norm error) "
+            f"{[(round(c, 6), round(n, 4)) for c, n in grads]}")
+
+
+def check_mode(label, g, out, g0, out0, target):
+    """Hold one mode's view-0 render and gradients to the default's, as
+    each mode allows; returns a phrase for the log."""
+    import torch
+    err, bad = compare_images(out.color, out0.color)
+    same_img = all(torch.equal(getattr(out, f), getattr(out0, f))
+                   for f in out._fields)
+    loss, loss0 = float(g.loss.detach()), float(g0.loss.detach())
+    rel = abs(loss - loss0) / abs(loss0)
+    what = (f"image {'bit-equal' if same_img else f'max abs err {err:.3e}, '
+            f'beyond tolerance {bad:.2e}'}, loss {loss:.7f} vs "
+            f"{loss0:.7f} (rel {rel:.2e})")
+    if label == "precise_sort=False":
+        # the quantized key blends instances whose depths agree in their
+        # top 20 bits in emission order: another image, held to the plain
+        # twins on its own binning (mode_view); the difference reported
+        mse = float(((out.color - out0.color) ** 2).mean())
+        return what + (f", PSNR against the precise sort's image "
+                       f"{10 * math.log10(1 / max(mse, 1e-30)):.2f} dB")
+    require(bad <= MAX_FLIP_FRACTION, f"{label}: image vs default "
+            f"{bad:.2e} beyond tolerance")
+    if label == "GSCREAM_SORT_FUSED=1":
+        require(same_img and loss == loss0 and all(
+            torch.equal(g.grads[k], g0.grads[k]) for k in g0.grads)
+            and torch.equal(g.screen, g0.screen),
+            f"{label}: not bit-equal to the default step")
+        return what + ", every gradient bit-equal"
+    if label == 'loss_dtype="bfloat16"':
+        require(same_img, f"{label}: the render changed")
+        require(rel <= BF16_LOSS_RTOL, f"{label}: loss rel {rel}")
+        # the parameter leaves, reported: the sign of a bfloat16 difference
+        # near 0 flips, and sums over the pixels can cancel
+        leaves = []
+        for k, r in g0.grads.items():
+            if bool(r.any()):
+                a, b = g.grads[k].double(), r.double()
+                leaves.append(
+                    (float((a * b).sum() / (a.norm() * b.norm())),
+                     float((a - b).norm() / b.norm()), k))
+        return (what + f"; {bf16_head(out0, target)}; parameter leaves: "
+                f"lowest cosine {min(leaves)[0]:.6f} ({min(leaves)[2]}), "
+                f"largest norm error {max(x[1] for x in leaves):.2e}")
+    compare_grads(g, g0, f"{label} vs default step gradients",
+                  loss_rtol=1e-5)
+    n_eq = sum(torch.equal(g.grads[k], g0.grads[k]) for k in g0.grads)
+    return what + (f", gradients within GRAD_* ({n_eq} of {len(g0.grads)} "
+                   "leaves bit-equal)")
+
+
+def raw_sharded(dev, cfg, scaffold, cams, targets, tmp):
+    """One step of ``make_sharded_train_step`` at mesh (1, 2) in two spawned
+    ranks under GSCREAM_KERNEL_COEFF=1 against the same step with legacy
+    records: the losses and the first moments (0.1 x the gradients)
+    bit-equal or within GRAD_*.  Returns the raw run's launches summed
+    over the ranks."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.model.io import save_checkpoint
+    from gscream_tpu_torch.parallel import distributed as dist_
+    from gscream_tpu_torch.parallel import workers
+    from gscream_tpu_torch.parallel.shard import sharded_view_batch
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.state import init_train_state
+    opt = OptimConfig()
+    state = os.path.join(tmp, "raw_state.pt")
+    save_checkpoint(state, init_train_state(scaffold, cfg))
+    d = instance_demand(scaffold, cfg, cams[0])
+    cap = capacity_tier(d + d // 4)
+    host = [t.cpu() for t in targets[0]]
+    batch = sharded_view_batch(
+        [dict(camera=workers.camera_to(cams[0], "cpu"), image=host[0],
+              mask=host[1], depth=host[2])], fg_boxes=[host[3]],
+        is_ref=[True], device="cpu")
+    res = {}
+    for tag, env in (("raw", {"GSCREAM_KERNEL_COEFF": "1"}),
+                     ("legacy", {"GSCREAM_KERNEL_COEFF": "0"})):
+        t0 = time.perf_counter()
+        with environ(**env):
+            res[tag] = dist_.spawn(
+                workers.steps_worker, 2, (1, 2), cfg, opt, cap, WIDTH,
+                HEIGHT, state, [dict(batch=batch, accumulate=True)], 0,
+                backend=rank_backend(dev), device=dev.type, timeout_s=600)
+        log(f"sharded step at (1, 2) with {tag} records: loss "
+            f"{res[tag][0]['packed'][0, 0].item():.7f}, wall ms "
+            f"{res[tag][0]['wall_ms']}, launches per rank "
+            f"{ {k: n for k, n in res[tag][0]['launches'].items() if n} }, "
+            f"spawn + run {time.perf_counter() - t0:.1f} s [{SMI}]")
+    raw, leg = res["raw"][0], res["legacy"][0]
+    require(len({r["digest"] for r in res["raw"]}) == 1,
+            "raw sharded step: replicas differ")
+    if dev.type == "cuda":
+        for r in res["raw"]:
+            require(r["launches"]["tile_forward_raw"] == 1 and r["launches"][
+                "tile_backward_raw"] == 1 and r["launches"][
+                "tile_forward"] == 0, f"raw sharded step launched "
+                f"{r['launches']}")
+    require(abs(raw["packed"][0, 0].item() - leg["packed"][0, 0].item())
+            <= 1e-6 * abs(leg["packed"][0, 0].item()),
+            "raw sharded loss differs from the legacy one")
+    n_eq, n_all = 0, 0
+    for name, want in leg["state"]["m"].items():
+        got = raw["state"]["m"][name]
+        if not bool(want.any()):
+            continue
+        n_all += 1
+        n_eq += bool(torch.equal(got, want))
+        grad_close(got, want, f"raw vs legacy sharded step, m {name}")
+    log(f"sharded step at (1, 2): raw vs legacy records, loss within 1e-6, "
+        f"first moments within GRAD_* ({n_eq} of {n_all} leaves bit-equal)")
+    launches = {}
+    for r in res["raw"]:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def modes_phase(dev, cams, targets):
+    """Phase (i): on a fresh copy of the benchmark model at view 0 of the
+    training targets, raw K1 and K2 against their plain twins and legacy
+    K1 and K2 on the whole frame and on 2 and 4 bands; every mode of
+    MODES (the render and one ``loss_and_grads`` call) against the
+    default; one sharded step at (1, 2) with raw records against legacy;
+    MODE_STEPS ``train_step`` calls per mode, each sized by a counting
+    pass, with the launch counters reset just before each and read just
+    after.  Returns
+    raw K1's and K2's lines and each kernel's launches over the modes'
+    steps and the raw sharded step."""
+    import torch
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.ops.binning import emission_counts
+    from gscream_tpu_torch.train.loop import capacity_tier
+    from gscream_tpu_torch.train.state import init_train_state
+    from gscream_tpu_torch.train.step import loss_and_grads, phase1_masks
+    from gscream_tpu_torch.train.step import train_step
+    t_start = time.perf_counter()
+    cfg, scaffold = bench_scene(dev)
+    cam, target = cams[0], targets[0]
+
+    with environ(GSCREAM_KERNEL_COEFF="1"):
+        cap = capacity_tier(instance_demand(scaffold, cfg, cam))
+        g, args = recorded_kernel_args(lambda: loss_and_grads(
+            scaffold, cam, *target, cfg=cfg, opt=OptimConfig(),
+            is_ref=True, capacity=cap, masks=phase1_masks(False)))
+    route = sorted(args)
+    require(route == sorted(["run_forward_raw", "run_backward_raw",
+                             "expand_gauss_rows", "expand_rows",
+                             "unpack_columns", "segment_reduce_cm"]),
+            f"the raw-record step called {route}")
+    label = (f"raw records, training view 0, capacity {cap}, "
+             f"{int(g.binning.num_instances)} instances")
+    with torch.no_grad():
+        results, raw_args = raw_kernel_lines(g, args, label)
+        raw_bands(raw_args, label)
+    del g, args, raw_args
+
+    with torch.no_grad():
+        _, sp = splats_of(scaffold, cfg, cam)
+        tight = emission_counts(sp, 32, 32)
+        with environ(GSCREAM_ROW_TIGHT="0"):
+            rect = emission_counts(sp, 32, 32)
+    log(f"view 0 counting passes: row-tight {int(tight[0])} instances in "
+        f"{int(tight[1])} rows; full-rect {int(rect[0])} instances")
+    _, _, out0, g0, _ = mode_view(scaffold, cfg, cam, target, {}, {}, {})
+    for label, env, opt_kw, step_kw, _ in MODES[1:]:
+        demand, cap_m, out, g, plain = mode_view(
+            scaffold, cfg, cam, target, env, opt_kw, step_kw,
+            plain=label in PLAIN_CHECKED)
+        what = check_mode(label, g, out, g0, out0, target)
+        log(f"mode {label} at view 0: demand {demand}, capacity {cap_m}, "
+            f"{int(g.binning.num_instances)} instances{plain}; vs default: "
+            f"{what}")
+        del g, out
+    del g0, out0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = raw_sharded(dev, cfg, scaffold, cams, targets, tmp)
+
+    ts = init_train_state(scaffold, cfg)
+    counters = launch_counters()
+    launches = dict.fromkeys(counters, 0)
+    for label, env, opt_kw, step_kw, want in MODES:
+        got, wall, steps = dict.fromkeys(counters, 0), [], []
+        with environ(**env):
+            for _ in range(MODE_STEPS):
+                cap_m = capacity_tier(instance_demand(ts.scaffold, cfg, cam))
+                for fn in counters.values():
+                    fn.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                ts, aux = train_step(ts, cam, *target, cfg=cfg,
+                                     opt=OptimConfig(**opt_kw), is_ref=True,
+                                     capacity=cap_m, width=WIDTH,
+                                     height=HEIGHT, accumulate=True,
+                                     **step_kw)
+                sync()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                for name, fn in counters.items():
+                    got[name] += fn.launches
+                loss, l1, demand, _, _ = aux.packed.tolist()
+                require(math.isfinite(loss) and math.isfinite(l1),
+                        f"mode {label}: loss {loss}")
+                require(demand <= cap_m, f"mode {label}: overflow {demand} "
+                        f"> {cap_m}")
+                steps.append((round(loss, 6), int(demand), cap_m))
+        if dev.type == "cuda":
+            for name, n in got.items():
+                require(n == (MODE_STEPS if name in want else 0),
+                        f"mode {label}: kernel {name} launched {n} times "
+                        f"in {MODE_STEPS} steps")
+        for name, n in got.items():
+            launches[name] += n
+        for name in ("tile_forward_raw", "tile_backward_raw"):
+            if name in want:
+                results[name]["launches"] = got[name]
+        log(f"mode {label}: {MODE_STEPS} train_step calls on view 0, (loss, "
+            f"instances, capacity) {steps}, wall ms {[round(w, 2) for w in wall]}"
+            f" (each to a sync, counting passes outside; median "
+            f"{float(np.median(wall)):.2f}), launches "
+            f"{ {k: n for k, n in got.items() if n} } [{SMI}]")
+    for name, n in sharded.items():
+        launches[name] += n
+    for name in ("tile_forward_raw", "tile_backward_raw"):
+        results[name]["launches_sharded_raw"] = sharded.get(name, 0)
+        require(dev.type != "cuda" or results[name].get("launches", 0) > 0,
+                f"kernel {name} was not launched by the raw-record step")
+    log(f"phase (i) took {time.perf_counter() - t_start:.1f} s")
+    return results, launches
+
+
 SMI = ""
 
 
@@ -3019,20 +3602,23 @@ def render_phase(dev):
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
                  loop_launches, eval_launches, spiral_launches,
-                 sharded_launches):
+                 sharded_launches, modes, modes_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
-    training route that runs it (K7-K9 from phase (e), the others from
-    phase (d)), timed at its view 0 and holding that route's launch
-    count; beside it both training routes' counts, the training loop's
-    (phase (f)), the render path's, the evaluated test split's and the
-    spiral's (phase (g)), the sharded steps' (phase (h), summed over the
-    ranks and meshes), and, for the kernels the render path runs, its
-    own line."""
+    training route that runs it (K7-K9 from phase (e), raw K1 and K2 from
+    phase (i), the others from phase (d)), timed at its view 0 and holding
+    that route's launch count; beside it both training routes' counts,
+    the training loop's (phase (f)), the render path's, the evaluated test
+    split's and the spiral's (phase (g)), the sharded steps' (phase (h),
+    summed over the ranks and meshes), the modes' steps' and the raw
+    sharded step's (phase (i)), and, for the kernels the render path
+    runs, its own line."""
     out = []
     for name in launch_counters():
         if name in pallas:
             rec = dict(pallas[name])
             rec["launches"] = pallas_launches[name]
+        elif name in modes:
+            rec = dict(modes[name])
         else:
             rec = dict(train[name])
         rec["launches_train"] = train_launches[name]
@@ -3041,6 +3627,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_eval"] = eval_launches[name]
         rec["launches_spiral"] = spiral_launches[name]
         rec["launches_sharded"] = sharded_launches[name]
+        rec["launches_modes"] = modes_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -3060,9 +3647,9 @@ def main():
                                  "PyTorch/CUDA port")
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
                     "earlier tree: time its K1 and K2 beside the port's")
-    ap.add_argument("--phase", choices=("h",), help="build the kernels "
-                    "and run this phase alone (on a host with several "
-                    "cards, phase (h)'s ranks take one card each)")
+    ap.add_argument("--phase", choices=("h", "i"), help="build the "
+                    "kernels and run this phase alone (on a host with "
+                    "several cards, phase (h)'s ranks take one card each)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -3071,11 +3658,17 @@ def main():
     SMI = smi_line()
     build_kernels(opts.parent)
     dev = torch.device("cuda")
-    if opts.phase == "h":
+    if opts.phase:
         cfg, _ = bench_scene(dev)
         cams = orbit_cameras(dev)
-        print(json.dumps({"launches_sharded": sharded_phase(
-            dev, cams, training_targets(dev, cfg, cams[:N_TRAIN_VIEWS]))}))
+        targets = training_targets(dev, cfg, cams[:N_TRAIN_VIEWS])
+        if opts.phase == "h":
+            print(json.dumps({"launches_sharded": sharded_phase(
+                dev, cams, targets)}))
+        else:
+            lines, launches = modes_phase(dev, cams, targets)
+            print(json.dumps({"kernels": list(lines.values()),
+                              "launches_modes": launches}))
         print(SMI)
         return
     render, cfg, scaffold, cams = render_phase(dev)
@@ -3086,11 +3679,12 @@ def main():
     loop_launches, trained = loop_phase(dev, cfg, scaffold, cams, targets)
     eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
     sharded_launches = sharded_phase(dev, cams, targets)
+    modes, modes_launches = modes_phase(dev, cams, targets)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
                                   pallas_launches, loop_launches,
                                   eval_launches, spiral_launches,
-                                  sharded_launches)))
+                                  sharded_launches, modes, modes_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

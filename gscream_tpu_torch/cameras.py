@@ -133,6 +133,11 @@ def make_camera_from_c2w(c2w: np.ndarray, fov_x: float, fov_y: float,
                    width, height, device)
 
 
+def ndc2pix(v, size: int):
+    """NDC coordinate → pixel coordinate (reference auxiliary.h:40-43)."""
+    return ((v + 1.0) * size - 1.0) * 0.5
+
+
 def qvec2rotmat(qvec: np.ndarray) -> np.ndarray:
     """COLMAP quaternion (w,x,y,z) → rotation matrix."""
     w, x, y, z = qvec
@@ -141,3 +146,21 @@ def qvec2rotmat(qvec: np.ndarray) -> np.ndarray:
         [2 * x * y + 2 * z * w, 1 - 2 * x * x - 2 * z * z, 2 * y * z - 2 * x * w],
         [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x * x - 2 * y * y],
     ])
+
+
+def rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix → COLMAP quaternion (w,x,y,z), the eigenvector of
+    the largest eigenvalue of the symmetric 4×4 of the matrix (reference
+    scene/colmap_loader.py, rotmat2qvec), with w ≥ 0."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = np.array([
+        [Rxx - Ryy - Rzz, 0, 0, 0],
+        [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+        [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+        [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+    ]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if qvec[0] < 0:
+        qvec *= -1
+    return qvec

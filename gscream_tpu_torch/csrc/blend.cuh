@@ -92,6 +92,42 @@ __device__ __forceinline__ bool stops(float T, float alpha, float& t_next) {
   return t_next < kTStop;
 }
 
+// Raw mode (GSCREAM_KERNEL_COEFF=1): a record holds the gaussian's own
+// [op, r, g, b, depth, unc, mx, my, ca, cb, cc, 0 x5].  to_legacy turns it,
+// in place in shared memory, into the legacy record [.., k0..k5, sx, sy, 0,
+// 0] for the tile whose pixel origin is (ox, oy), with the expressions of
+// pack_instance_data and _raw_coeffs (rasterize_tiled.py:204-214, :285-300)
+// in their order, one rounding per operation, so that nothing is contracted
+// into a multiply-add: the coefficients are bit-equal to those PyTorch's
+// separate elementwise operations pack, and every decision after this is
+// the legacy one.  The centre rounds half to even (rintf), as torch.round
+// and jnp.round do.
+__device__ __forceinline__ void to_legacy(float4* r, float ox, float oy) {
+  const float4 b = r[1];                 // depth, unc, mx, my
+  const float4 c = r[2];                 // ca, cb, cc, 0
+  const float mx = b.z, my = b.w, ca = c.x, cb = c.y, cc = c.z;
+  const float mxl = __fsub_rn(mx, ox);
+  const float myl = __fsub_rn(my, oy);
+  const float k0 = __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(ca, mxl), mxl),
+                                 __fmul_rn(__fmul_rn(cc, myl), myl))),
+      __fmul_rn(__fmul_rn(cb, mxl), myl));
+  const float k1 = __fadd_rn(__fmul_rn(ca, mxl), __fmul_rn(cb, myl));
+  const float k2 = __fadd_rn(__fmul_rn(cc, myl), __fmul_rn(cb, mxl));
+  r[1] = make_float4(b.x, b.y, k0, k1);
+  r[2] = make_float4(k2, __fmul_rn(-0.5f, ca), -cb, __fmul_rn(-0.5f, cc));
+  r[3] = make_float4(__fsub_rn(ox, rintf(mx)), __fsub_rn(oy, rintf(my)),
+                     0.0f, 0.0f);
+}
+
+// The pixel origin of the tile whose global id is gt on a grid grid_x tiles
+// wide.
+__device__ __forceinline__ void tile_origin(int gt, int grid_x, float& ox,
+                                            float& oy) {
+  ox = (float)((gt % grid_x) * kTileW);
+  oy = (float)((gt / grid_x) * kTileW);
+}
+
 // 16-byte copy global -> shared that completes asynchronously (cp.async)
 __device__ __forceinline__ void copy16(void* smem, const void* gmem) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
@@ -188,10 +224,10 @@ inline void launch_tile_order(const int* tile_count, int n_tiles, int* work,
 
 // CTAs of `kernel` (kThreads threads, static shared memory only) that the
 // card holds at once: the size of a persistent grid.  Asked once per
-// process and kernel.
+// process and kernel; `n` is the caller's cache for this kernel (template
+// instances of one kernel share a type, so a static here would mix them).
 template <typename Kernel>
-inline int resident_ctas(Kernel kernel) {
-  static int n = 0;
+inline int resident_ctas(Kernel kernel, int& n) {
   if (n == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas kernel
 //    gscream_tpu/ops/rasterize_tiled.py::_bwd_kernel (:513, launched by
-//    _run_backward :807).
+//    _run_backward :807), both of its bodies: the legacy records
+//    (gs_tile_backward) and, under GSCREAM_KERNEL_COEFF=1, the raw ones
+//    (gs_tile_backward_raw, the branches at :546-551 and :690-692).
 //
 // What it computes: for every 32x32 tile, one 16-float gradient row per
 // instance of the tile's depth-sorted range, from the K1 records
@@ -69,6 +71,12 @@
 //    all are.
 // There are no atomics on any sum and the order of every sum is fixed, so
 // a rerun is bit-equal.
+// Raw records take the same kernel with kRaw set, as K1 does
+// (rasterize_fwd.cu): once a batch has landed, thread i turns record i into
+// the legacy one for the tile's origin (gs::to_legacy: k0..k5 and the
+// shifts sx = ox - rint(mx), sy = oy - rint(my)) and the CTA meets at one
+// more barrier before it tests the batch.  Raw and legacy records of the
+// same binning give bit-equal rows.
 #include "blend.cuh"
 
 namespace {
@@ -178,12 +186,13 @@ __device__ __forceinline__ float reduce_pair(const float (&va)[kSums],
   return v[0];
 }
 
+template <bool kRaw>
 __global__ void __launch_bounds__(gs::kThreads, 2)
 tile_backward_kernel(const float* __restrict__ inst,       // (cap,16)
                      const float* __restrict__ pix,        // (n_tiles,8,1024)
                      const int* __restrict__ tile_start,   // (n_tiles,)
                      const int* __restrict__ tile_count,   // (n_tiles,)
-                     int n_tiles, int capacity,
+                     int n_tiles, int capacity, int grid_x, int tile_base,
                      int* __restrict__ work,               // (1+n_tiles,)
                      float* __restrict__ out) {            // (cap,16)
   __shared__ __align__(16) float4 rec[2][kBatch * 4];
@@ -207,6 +216,8 @@ tile_backward_kernel(const float* __restrict__ inst,       // (cap,16)
     const float4* src = reinterpret_cast<const float4*>(inst) +
                         (size_t)start * 4;
     float* dst = out + (size_t)start * kRow;
+    float ox = 0.0f, oy = 0.0f;
+    if (kRaw) gs::tile_origin(tile_base + t, grid_x, ox, oy);
 
     float gr[4], gg[4], gb[4], gd[4], gu[4], base[4], gtt[4];
     float T[4], prefix[4];
@@ -254,6 +265,10 @@ tile_backward_kernel(const float* __restrict__ inst,       // (cap,16)
         gs::copy16(&rec[buf ^ 1][tid], src + (size_t)(b0 + kBatch) * 4 + tid);
       }
       gs::copy_commit();
+      if (kRaw) {
+        if (tid < nb) gs::to_legacy(&rec[buf][4 * tid], ox, oy);
+        __syncthreads();                   // the batch holds legacy records
+      }
       for (int m = tid; m < nb * gs::kWarps; m += gs::kThreads) {
         live[m] = gs::may_pass_block(&rec[buf][4 * (m >> 3)], m & 7);
       }
@@ -306,23 +321,51 @@ tile_backward_kernel(const float* __restrict__ inst,       // (cap,16)
   }
 }
 
+template <bool kRaw>
+int launch(const float* inst, const float* pix, const int* tile_start,
+           const int* tile_count, int n_tiles, int capacity, int grid_x,
+           int tile_base, int* work, float* out, cudaStream_t stream) {
+  static int resident = 0;
+  if (capacity <= 0) return (int)cudaGetLastError();
+  const int grid = max(1, min(n_tiles, gs::resident_ctas(
+                                          tile_backward_kernel<kRaw>,
+                                          resident)));
+  gs::launch_tile_order(tile_count, n_tiles, work, stream);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tile_backward_kernel<kRaw><<<grid, gs::kThreads, 0, stream>>>(
+      inst, pix, tile_start, tile_count, n_tiles, capacity, grid_x,
+      tile_base, work, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gs_tile_backward(const float* inst, const float* pix,
                                 const int* tile_start, const int* tile_count,
                                 int n_tiles, int capacity, int* work,
                                 float* out, cudaStream_t stream) {
-  if (capacity <= 0) return (int)cudaGetLastError();
-  const int grid = max(1, min(n_tiles, gs::resident_ctas(
-                                          tile_backward_kernel)));
-  gs::launch_tile_order(tile_count, n_tiles, work, stream);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  tile_backward_kernel<<<grid, gs::kThreads, 0, stream>>>(
-      inst, pix, tile_start, tile_count, n_tiles, capacity, work, out);
-  return (int)cudaGetLastError();
+  return launch<false>(inst, pix, tile_start, tile_count, n_tiles, capacity,
+                       1, 0, work, out, stream);
+}
+
+// Raw records; tile t of the launch is global tile tile_base + t of a grid
+// grid_x tiles wide.
+extern "C" int gs_tile_backward_raw(const float* inst, const float* pix,
+                                    const int* tile_start,
+                                    const int* tile_count, int n_tiles,
+                                    int capacity, int grid_x, int tile_base,
+                                    int* work, float* out,
+                                    cudaStream_t stream) {
+  if (grid_x <= 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(inst, pix, tile_start, tile_count, n_tiles, capacity,
+                      grid_x, tile_base, work, out, stream);
 }
 
 extern "C" int gs_tile_backward_attributes(int* out) {
-  return gs::kernel_attributes(tile_backward_kernel, out);
+  return gs::kernel_attributes(tile_backward_kernel<false>, out);
+}
+
+extern "C" int gs_tile_backward_raw_attributes(int* out) {
+  return gs::kernel_attributes(tile_backward_kernel<true>, out);
 }

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas kernel
 //    gscream_tpu/ops/rasterize_tiled.py::_fwd_kernel (:360, launched by
-//    _run_forward :484).
+//    _run_forward :484), both of its bodies: the legacy records
+//    (gs_tile_forward) and, under GSCREAM_KERNEL_COEFF=1, the raw ones
+//    (gs_tile_forward_raw, the branch at :378-383).
 //
 // What it computes: for every 32x32 tile, the front-to-back blend of the
 // tile's depth-sorted instance range [tile_start, tile_start + tile_count)
@@ -46,6 +48,16 @@
 //    and each stages its tile's records through a double buffer of its own
 //    by cp.async, so no warp waits at a CTA barrier for a heavier block,
 //    and a warp whose pixels are all done leaves its item.
+// Raw records ([op, r, g, b, depth, unc, mx, my, ca, cb, cc, 0 x5]) take
+// the same kernel with kRaw set: tile t's origin comes from its global id
+// tile_base + t (a band of a sharded grid passes its first global tile),
+// and each lane turns the record it staged into the legacy one
+// (gs::to_legacy, one rounding per operation in the legacy pack's order)
+// before the warp tests or blends it, so raw and legacy records of the same
+// binning blend bit-equal.  The derivation costs ~20 operations per record
+// and warp, against the ~2.2 blocks x 4 pixels x ~30 operations a record
+// costs after it; the TPU's raw mode lost 5% to it on a VPU-bound kernel
+// (rasterize_tiled.py:107-112).
 #include "blend.cuh"
 
 namespace {
@@ -71,11 +83,12 @@ __device__ __forceinline__ void stage(float4* dst, const float4* src,
   gs::copy_commit();
 }
 
+template <bool kRaw>
 __global__ void __launch_bounds__(gs::kThreads, 4)
 tile_forward_kernel(const float* __restrict__ inst,      // (cap,16)
                     const int* __restrict__ tile_start,  // (n_tiles,)
                     const int* __restrict__ tile_count,  // (n_tiles,)
-                    int n_tiles,
+                    int n_tiles, int grid_x, int tile_base,
                     int* __restrict__ work,              // (1+n_tiles,)
                     float* __restrict__ out) {           // (n_tiles,8,1024)
   // each warp's two chunk buffers
@@ -97,6 +110,8 @@ tile_forward_kernel(const float* __restrict__ inst,      // (cap,16)
     const int count = tile_count[t];
     const float4* src = reinterpret_cast<const float4*>(inst) +
                         (size_t)tile_start[t] * 4;
+    float ox = 0.0f, oy = 0.0f;
+    if (kRaw) gs::tile_origin(tile_base + t, grid_x, ox, oy);
     float T[4], cr[4], cg[4], cb[4], cd[4], cu[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -111,6 +126,12 @@ tile_forward_kernel(const float* __restrict__ inst,      // (cap,16)
       __syncwarp();                        // chunk c0 is in rec[warp][buf]
       if (__all_sync(0xffffffffu, done == 0xFu)) break;
       stage(rec[warp][buf ^ 1], src, c0 + kChunk, count, lane);
+      if (kRaw) {
+        if (c0 + lane < count) {
+          gs::to_legacy(&rec[warp][buf][4 * lane], ox, oy);
+        }
+        __syncwarp();                      // the chunk holds legacy records
+      }
       const float4* r = rec[warp][buf];
       unsigned live = __ballot_sync(
           0xffffffffu,
@@ -157,21 +178,46 @@ tile_forward_kernel(const float* __restrict__ inst,      // (cap,16)
   }
 }
 
+template <bool kRaw>
+int launch(const float* inst, const int* tile_start, const int* tile_count,
+           int n_tiles, int grid_x, int tile_base, int* work, float* out,
+           cudaStream_t stream) {
+  static int resident = 0;
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  const int grid = min(n_tiles, gs::resident_ctas(tile_forward_kernel<kRaw>,
+                                                  resident));
+  gs::launch_tile_order(tile_count, n_tiles, work, stream);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tile_forward_kernel<kRaw><<<grid, gs::kThreads, 0, stream>>>(
+      inst, tile_start, tile_count, n_tiles, grid_x, tile_base, work, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gs_tile_forward(const float* inst, const int* tile_start,
                                const int* tile_count, int n_tiles, int* work,
                                float* out, cudaStream_t stream) {
-  if (n_tiles <= 0) return (int)cudaGetLastError();
-  const int grid = min(n_tiles, gs::resident_ctas(tile_forward_kernel));
-  gs::launch_tile_order(tile_count, n_tiles, work, stream);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  tile_forward_kernel<<<grid, gs::kThreads, 0, stream>>>(
-      inst, tile_start, tile_count, n_tiles, work, out);
-  return (int)cudaGetLastError();
+  return launch<false>(inst, tile_start, tile_count, n_tiles, 1, 0, work,
+                       out, stream);
+}
+
+// Raw records; tile t of the launch is global tile tile_base + t of a grid
+// grid_x tiles wide.
+extern "C" int gs_tile_forward_raw(const float* inst, const int* tile_start,
+                                   const int* tile_count, int n_tiles,
+                                   int grid_x, int tile_base, int* work,
+                                   float* out, cudaStream_t stream) {
+  if (grid_x <= 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(inst, tile_start, tile_count, n_tiles, grid_x,
+                      tile_base, work, out, stream);
 }
 
 extern "C" int gs_tile_forward_attributes(int* out) {
-  return gs::kernel_attributes(tile_forward_kernel, out);
+  return gs::kernel_attributes(tile_forward_kernel<false>, out);
+}
+
+extern "C" int gs_tile_forward_raw_attributes(int* out) {
+  return gs::kernel_attributes(tile_forward_kernel<true>, out);
 }

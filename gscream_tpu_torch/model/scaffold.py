@@ -240,6 +240,11 @@ def scaffold_from_numpy(anchor_params, mlp_params, alive,
                          xyz_max=xyz_max)
 
 
+def n_alive(state: ScaffoldState) -> torch.Tensor:
+    """The live anchors' count, a () int32 tensor (scaffold.py:267)."""
+    return torch.sum(state.alive.to(torch.int32), dtype=torch.int32)
+
+
 def _as_dict(x) -> Dict[str, Any]:
     return x._asdict() if hasattr(x, "_asdict") else dict(x)
 

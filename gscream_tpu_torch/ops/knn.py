@@ -26,3 +26,12 @@ def mean_knn_sq_dist(points: torch.Tensor, k: int = 3,
         d[torch.arange(rows.shape[0], device=points.device), idx] = float("inf")
         out[s:s + block] = d.topk(kk, dim=1, largest=False).values.mean(1)
     return out
+
+
+def estimate_voxel_size(points: torch.Tensor) -> torch.Tensor:
+    """Median mean-3NN squared distance: the reference's automatic voxel
+    size (gaussian_model.py:305-312, ``kthvalue(N/2)`` of ``distCUDA2``;
+    JAX knn.py:53)."""
+    d = mean_knn_sq_dist(points)
+    n = d.shape[0]
+    return torch.sort(d).values[(n // 2) - 1 if n % 2 == 0 else n // 2]

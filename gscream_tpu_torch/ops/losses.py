@@ -10,8 +10,13 @@
   train.py:535-573 with the |scale| guard and the 4-level multiscale
   smoothness pyramid.
 
-Images are (C,H,W); depths and masks (H,W) or (1,H,W).  Only the float32
-path is ported.
+* ``l2_loss`` and ``inverse_depth_smoothness`` — the rest of the
+  reference loss library (unused by its run configuration).
+
+Images are (C,H,W); depths and masks (H,W) or (1,H,W).  The L1 terms
+take bfloat16 images (the ``loss_dtype="bfloat16"`` loss head): the
+differences stay in the image's dtype and the means accumulate in at
+least float32 (``_acc_dtype``, losses.py:24-37).
 
 ``|x|`` is :func:`_abs`, whose gradient at 0 is +1 as JAX's is
 (``torch.abs`` gives 0 there): flat regions, where forward differences
@@ -26,12 +31,23 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
+def _acc_dtype(x):
+    """The dtype a mean accumulates in: at least float32 (float32 under
+    bfloat16, float64 stays float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def l1_loss(pred, gt):
-    return torch.mean(_abs(pred - gt))
+    return torch.mean(_abs(pred - gt), dtype=_acc_dtype(pred))
 
 
 def l1_loss_masked(pred, gt, mask):
-    return torch.mean(_abs(pred - gt) * mask)
+    return torch.mean(_abs(pred - gt) * mask.to(pred.dtype),
+                      dtype=_acc_dtype(pred))
+
+
+def l2_loss(pred, gt):
+    return torch.mean((pred - gt) ** 2)
 
 
 def psnr(pred, gt, mask=None):
@@ -119,3 +135,25 @@ def depth_loss_other(depth, midas_depth, gt_mask, w_depth: float,
     loss = loss + 0.5 * w_smooth * multiscale_gradient_loss(
         aligned, midas_depth, valid)
     return loss
+
+
+def inverse_depth_smoothness(idepth, image, mask=None):
+    """Image-aware inverse-depth smoothness (kornia semantics; JAX
+    losses.py:136-162, the reference's ``inverse_depth_smoothness_loss``
+    and its masked ``_spatial`` variant): ``|∂x d|·exp(−mean_c|∂x I|) +
+    |∂y d|·exp(−mean_c|∂y I|)``, each term mean-reduced over its (H, W−1)
+    / (H−1, W) grid, with forward differences ``d[..., :-1] − d[...,
+    1:]``.  ``idepth`` (H, W), ``image`` (3, H, W); ``mask`` (H, W), if
+    given, multiplies the terms before the (unmasked) means."""
+    dx_d = _abs(idepth[:, :-1] - idepth[:, 1:])
+    dy_d = _abs(idepth[:-1, :] - idepth[1:, :])
+    wx = torch.exp(-torch.mean(_abs(image[:, :, :-1] - image[:, :, 1:]),
+                               dim=0))
+    wy = torch.exp(-torch.mean(_abs(image[:, :-1, :] - image[:, 1:, :]),
+                               dim=0))
+    sx = dx_d * wx
+    sy = dy_d * wy
+    if mask is not None:
+        sx = sx * mask[:, :-1]
+        sy = sy * mask[:-1, :]
+    return torch.mean(sx) + torch.mean(sy)

@@ -14,12 +14,14 @@ Semantics of the reference CUDA preprocess (``forward.cu:157-267``):
 * depth = view-space z (forward.cu:261)
 
 plus the JAX package's tight iso rects (``t_iso``) when ``opacity`` is
-given.  :func:`preprocess` keeps the JAX package's column-unrolled
+given and ``GSCREAM_TIGHT_CULL`` is not ``0`` (read per call, as the JAX
+package's :331 reads it).  :func:`preprocess` keeps the JAX package's column-unrolled
 expression order, operation for operation, so its float32 results track
 XLA's.  Culled gaussians carry ``radius == 0``.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -109,7 +111,9 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
 
     ``radius`` stays the reference's 3σ value; with ``opacity`` the
     emission rect is tightened to the α ≥ 1/255 iso-ellipse's bounding
-    box (intersected with the 3σ rect) and ``t_iso`` is returned.
+    box (intersected with the 3σ rect) and ``t_iso`` is returned, unless
+    ``GSCREAM_TIGHT_CULL=0``: then the rects stay the 3σ ones and
+    ``t_iso`` is ``None`` (full-rect emission downstream).
     """
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
@@ -217,7 +221,7 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
         visible = visible & active_mask
     radius = torch.where(visible, radius_i, torch.zeros_like(radius_i))
 
-    if opacity is not None:
+    if opacity is not None and os.environ.get("GSCREAM_TIGHT_CULL") != "0":
         # tight rect: α(d) = op·exp(-½ dᵀΣ⁻¹d) ≥ 1/255  ⇔  dᵀΣ⁻¹d ≤ 2t,
         # t = ln(255·op) (+0.02 guard); bbox half-widths √(2t·Σxx),
         # √(2t·Σyy), covered as the continuous interval [m-h, m+h] and
@@ -258,3 +262,23 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
         rect_min=irect(rmin_x, rmin_y),
         rect_max=irect(rmax_x, rmax_y),
         t_iso=t_iso)
+
+
+def visible_filter(means3d, scales, rots, camera, scale_modifier=1.0):
+    """Anchor visibility prefilter: the ``radius > 0`` mask (JAX
+    projection.py:380; the reference's ``filter_preprocessCUDA``,
+    forward.cu:272-346)."""
+    s = preprocess(means3d, scales, rots, camera.w2c, camera.full_proj,
+                   camera.width, camera.height, camera.tan_fovx,
+                   camera.tan_fovy, scale_modifier)
+    return s.radius > 0
+
+
+def position2d_filter(means3d, scales, rots, camera, scale_modifier=1.0):
+    """(visible mask, x pixels, y pixels) per anchor (JAX
+    projection.py:392; the reference's ``position2D_filter``,
+    forward.cu:353-433)."""
+    s = preprocess(means3d, scales, rots, camera.w2c, camera.full_proj,
+                   camera.width, camera.height, camera.tan_fovx,
+                   camera.tan_fovy, scale_modifier)
+    return s.radius > 0, s.mean2d[:, 0], s.mean2d[:, 1]

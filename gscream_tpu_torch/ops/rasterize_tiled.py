@@ -10,6 +10,15 @@ handful of flops per (instance, pixel) pair.  K1 (:func:`run_forward`,
 ``csrc/rasterize_fwd.cu``) blends each 32×32 tile front to back; the image
 crop and the background composite stay in torch.
 
+Under ``GSCREAM_KERNEL_COEFF=1`` (raw mode, rasterize_tiled.py:117) the
+record is the gaussian's own ``[op, r, g, b, depth, unc, mx, my, ca, cb,
+cc, 0×5]``, one gather, and the raw bodies of K1 and K2
+(:func:`run_forward_raw`, :func:`run_backward_raw`) derive ``k0..k5`` and
+``sx, sy`` per tile from the tile's origin, found from its global id
+``tile_base + t`` (:378-383, :546-551, ``_raw_coeffs`` :285-300): one
+rounding per operation, in the legacy pack's order, so raw and legacy
+blend the same coefficients bit for bit.
+
 The backward (:class:`_RasterizeTiled`, the ``_raster_fwd``/``_raster_bwd``
 pair of the JAX package, :1180-1250) runs
 
@@ -24,7 +33,9 @@ pair of the JAX package, :1180-1250) runs
 4. :func:`pergauss_chain`: moments → d_mean2d, d_conic, d_opacity, once
    per gaussian.
 
-Steps 2-3 are the default ``GSCREAM_REORDER=cm``.  The row modes
+Steps 2-3 are the default ``GSCREAM_REORDER=cm``.
+``GSCREAM_SCATTER_REDUCE`` replaces them with one ``index_add_`` of the
+rows over ``gauss_id`` (JAX's ``segment_sum``, :1227-1231).  The row modes
 (``gather``, ``scatter``, ``sort``; :func:`segment_reduce_grads`) scatter
 K2's rows to emission order as rows and sum them with K7
 (:func:`segment_reduce_rows`).  :func:`build_binning` is the JAX
@@ -57,7 +68,15 @@ Inside a chunk, the instances of one gaussian form a segment.
 So kernel and plain version are bit-equal, and so are K3 and K7 on the
 same values; against the JAX package, which sums by indicator matmuls,
 they agree to rtol 1e-5.  The binning gets no gradient.  No step uses
-atomics, so the gradient of a rerun is bit-equal.
+atomics, so the gradient of a rerun is bit-equal — except under
+``GSCREAM_SCATTER_REDUCE``, whose ``index_add_`` adds with atomics on
+the card in an order that changes from run to run (agreeing with K3 to
+rtol 1e-5); the bit-exact resume holds for the other modes.
+
+``GSCREAM_MXU_POWER=1`` moves the power polynomial of the TPU kernels
+onto the TPU's matrix unit; the same power is computed either way, so the
+port ignores it, except that, as in the JAX package (:276-280), it may
+not be combined with ``GSCREAM_KERNEL_COEFF=1``.
 """
 from __future__ import annotations
 
@@ -68,8 +87,9 @@ import torch
 from torch.profiler import record_function
 
 from . import cuda_build as cb
-from .binning import Binning, bin_instances, bin_instances_pallas
-from .projection import ALPHA_MAX, ALPHA_MIN, T_STOP, Splats
+from .binning import (Binning, bin_instances, bin_instances_pallas,
+                      full_rect, overflow_demand)
+from .projection import ALPHA_MAX, ALPHA_MIN, T_STOP, Splats, preprocess
 from .shuffle import pack_columns, unpack_columns
 
 TILE_W = 32           # pixels per tile, x
@@ -86,6 +106,19 @@ class TiledOut(NamedTuple):
     final_t: torch.Tensor      # (H,W)
 
 
+def kernel_coeff() -> bool:
+    """``GSCREAM_KERNEL_COEFF=1`` (raw mode, module docstring), read per
+    call; raises under ``GSCREAM_MXU_POWER=1`` as the JAX package does
+    (rasterize_tiled.py:276-280)."""
+    raw = os.environ.get("GSCREAM_KERNEL_COEFF", "0") == "1"
+    if raw and os.environ.get("GSCREAM_MXU_POWER") == "1":
+        raise RuntimeError(
+            "GSCREAM_MXU_POWER=1 requires the legacy precomputed-coefficient "
+            "packing (set GSCREAM_KERNEL_COEFF=0): the MXU power contraction "
+            "reads k0..k5 from the instance lanes")
+    return raw
+
+
 def gauss_attrs(mean2d, conic, opacity, colors, depth, unc):
     """(N, 11) attribute table [op, r, g, b, depth, unc, mx, my, ca, cb,
     cc]."""
@@ -93,23 +126,11 @@ def gauss_attrs(mean2d, conic, opacity, colors, depth, unc):
                       unc[:, None], mean2d, conic], dim=1)
 
 
-def pack_instance_data(mean2d, conic, opacity, colors, depth, unc,
-                       binning: Binning, grid_x: int) -> torch.Tensor:
-    """Per-gaussian attributes → (capacity, 16) float32 instance records
-    in sorted order, with the tile-local power coefficients and the
-    centering shifts precomputed (legacy mode).  Slots past the live
-    instances gather gaussian 0 at tile ``num_tiles``: finite, and outside
-    every tile's range, so never read.  A binning that carries its sorted
-    records as dense columns (``cols16``, the Pallas-emission build) is
-    transposed by K8 instead (rasterize_tiled.py:164-174); its slots past
-    the live instances are zero."""
-    if binning.cols16 is not None:
-        return pack_columns(binning.cols16)
-    a = gauss_attrs(mean2d, conic, opacity, colors, depth, unc)[
-        binning.gauss_id.long()]
-    tile = binning.tile_id
-    ox = ((tile % grid_x) * TILE_W).to(torch.float32)
-    oy = ((tile // grid_x) * TILE_H).to(torch.float32)
+def legacy_records(a, ox, oy) -> torch.Tensor:
+    """(R, 16) legacy records from (R, ≥11) raw rows and their tiles'
+    origins ``ox, oy`` ((R,) float32): the tile-local power coefficients
+    and the centering shifts, one rounding per operation
+    (rasterize_tiled.py:204-214, ``_raw_coeffs`` :285-300)."""
     mxl = a[:, 6] - ox
     myl = a[:, 7] - oy
     ca, cb_, cc = a[:, 8], a[:, 9], a[:, 10]
@@ -126,18 +147,61 @@ def pack_instance_data(mean2d, conic, opacity, colors, depth, unc,
     ], dim=1)
 
 
+def tile_origin(tile, grid_x: int):
+    """Tile ids → the float32 pixel origins (ox, oy) of those tiles."""
+    return (((tile % grid_x) * TILE_W).to(torch.float32),
+            (torch.div(tile, grid_x, rounding_mode="floor")
+             * TILE_H).to(torch.float32))
+
+
+def pack_instance_data(mean2d, conic, opacity, colors, depth, unc,
+                       binning: Binning, grid_x: int,
+                       raw: bool = False) -> torch.Tensor:
+    """Per-gaussian attributes → (capacity, 16) float32 instance records
+    in sorted order: with the tile-local power coefficients and the
+    centering shifts precomputed (legacy mode), or, with ``raw``, the
+    attribute rows padded to 16 lanes (raw mode, :188-192).  Slots past
+    the live instances gather a gaussian at tile ``num_tiles``: finite,
+    and outside every tile's range, so never read.  A binning that carries
+    its sorted records as dense columns (``cols16``, the Pallas-emission
+    build, never taken in raw mode) is transposed by K8 instead
+    (rasterize_tiled.py:164-174); its slots past the live instances are
+    zero."""
+    if binning.cols16 is not None:
+        return pack_columns(binning.cols16)
+    a = gauss_attrs(mean2d, conic, opacity, colors, depth, unc)[
+        binning.gauss_id.long()]
+    if raw:
+        return torch.nn.functional.pad(a, (0, ILANES - a.shape[1]))
+    return legacy_records(a, *tile_origin(binning.tile_id, grid_x))
+
+
 def _pixel_coords(device):
     p = torch.arange(PIX, device=device)
     return ((p % TILE_W).to(torch.float32)[None, :],
             (p // TILE_W).to(torch.float32)[None, :])
 
 
-def run_forward_plain(inst, tile_start, tile_count,
-                      n_tiles: int) -> torch.Tensor:
+def _tile_records(inst, start: int, count: int, t: int, raw):
+    """Tile ``t``'s records ``inst[start:start+count]``, turned into legacy
+    records in raw mode (``raw`` = (grid_x, tile_base), or None)."""
+    d = inst[start:start + count]
+    if raw is None:
+        return d
+    grid_x, tile_base = raw
+    ox, oy = tile_origin(torch.full_like(d[:, 0], tile_base + t,
+                                         dtype=torch.int64), grid_x)
+    return legacy_records(d, ox, oy)
+
+
+def run_forward_plain(inst, tile_start, tile_count, n_tiles: int,
+                      raw=None) -> torch.Tensor:
     """Plain version of K1; see :func:`run_forward`.  Per tile, vectorized
     over pixels: α of shape (count, 1024), then an inclusive ``cumprod``
     of 1−α gives T after each instance; an instance is blended only while
-    that stays ≥ 1e-4, and the final T is the last such value."""
+    that stays ≥ 1e-4, and the final T is the last such value.  With
+    ``raw`` = (grid_x, tile_base) the records are raw and each tile's are
+    turned into legacy ones first (:func:`run_forward_raw_plain`)."""
     dev = inst.device
     out = torch.zeros((n_tiles, 8, PIX), dtype=torch.float32, device=dev)
     out[:, 6] = 1.0
@@ -148,7 +212,7 @@ def run_forward_plain(inst, tile_start, tile_count,
         c = counts[t]
         if c == 0:
             continue
-        d = inst[starts[t]:starts[t] + c]
+        d = _tile_records(inst, starts[t], c, t, raw)
         k0, k1, k2 = d[:, 6:7], d[:, 7:8], d[:, 8:9]
         k3, k4, k5 = d[:, 9:10], d[:, 10:11], d[:, 11:12]
         power = k0 + (k1 + k3 * x + k4 * y) * x + (k2 + k5 * y) * y
@@ -197,6 +261,41 @@ def run_forward(inst, tile_start, tile_count, n_tiles: int) -> torch.Tensor:
 run_forward.launches = 0
 
 
+def run_forward_raw_plain(inst, tile_start, tile_count, n_tiles: int,
+                          grid_x: int, tile_base: int = 0) -> torch.Tensor:
+    """Plain version of raw K1; see :func:`run_forward_raw`."""
+    return run_forward_plain(inst, tile_start, tile_count, n_tiles,
+                             (grid_x, tile_base))
+
+
+def run_forward_raw(inst, tile_start, tile_count, n_tiles: int, grid_x: int,
+                    tile_base: int = 0) -> torch.Tensor:
+    """Raw K1 (``_fwd_kernel`` under ``GSCREAM_KERNEL_COEFF=1``): as
+    :func:`run_forward`, on raw records ``[op, r, g, b, depth, unc, mx,
+    my, ca, cb, cc, 0×5]``; the kernel finds tile ``t``'s origin from its
+    global id ``tile_base + t`` on a grid ``grid_x`` tiles wide (a band of
+    a sharded grid passes its first global tile) and derives the legacy
+    coefficients as it stages each record (``csrc/rasterize_fwd.cu``)."""
+    if inst.device.type == "cpu":
+        return run_forward_raw_plain(inst, tile_start, tile_count, n_tiles,
+                                     grid_x, tile_base)
+    cb.check(inst, "inst", torch.float32, (None, ILANES))
+    cb.check(tile_start, "tile_start", torch.int32, (n_tiles,))
+    cb.check(tile_count, "tile_count", torch.int32, (n_tiles,))
+    out = torch.empty((n_tiles, 8, PIX), dtype=torch.float32,
+                      device=inst.device)
+    work = _tile_schedule(n_tiles, inst.device)
+    fn = cb.function("rasterize_fwd", "gs_tile_forward_raw", "pppiiippp")
+    rc = fn(cb.ptr(inst), cb.ptr(tile_start), cb.ptr(tile_count), n_tiles,
+            grid_x, tile_base, cb.ptr(work), cb.ptr(out), cb.stream_of(inst))
+    cb.raise_on_error(rc, "tile_forward_raw")
+    run_forward_raw.launches += 1
+    return out
+
+
+run_forward_raw.launches = 0
+
+
 def tiles_to_image(tiles: torch.Tensor, width: int, height: int):
     """(n_tiles, C, PIX) → (C, H, W) crop."""
     gx = -(-width // TILE_W)
@@ -219,11 +318,12 @@ def image_to_tiles(img: torch.Tensor, width: int, height: int):
 
 
 def run_backward_plain(inst, pix_tiles, tile_start, tile_count,
-                       n_tiles: int) -> torch.Tensor:
+                       n_tiles: int, raw=None) -> torch.Tensor:
     """Plain version of K2; see :func:`run_backward`.  Per tile, vectorized
     over pixels like :func:`run_forward_plain`: the inclusive ``cumprod``
     gives T, an inclusive ``cumsum`` of γ·w the prefix, and the moments are
-    sums over the tile's pixels in the rounded-centre frame."""
+    sums over the tile's pixels in the rounded-centre frame.  ``raw`` as
+    in :func:`run_forward_plain`."""
     dev = inst.device
     out = torch.zeros((inst.shape[0], ILANES), dtype=torch.float32,
                       device=dev)
@@ -235,7 +335,7 @@ def run_backward_plain(inst, pix_tiles, tile_start, tile_count,
         if c == 0:
             continue
         s = starts[t]
-        d = inst[s:s + c]
+        d = _tile_records(inst, s, c, t, raw)
         g = pix_tiles[t]                          # (8, PIX)
         k0, k1, k2 = d[:, 6:7], d[:, 7:8], d[:, 8:9]
         k3, k4, k5 = d[:, 9:10], d[:, 10:11], d[:, 11:12]
@@ -296,6 +396,61 @@ def run_backward(inst, pix_tiles, tile_start, tile_count,
 
 
 run_backward.launches = 0
+
+
+def run_backward_raw_plain(inst, pix_tiles, tile_start, tile_count,
+                           n_tiles: int, grid_x: int,
+                           tile_base: int = 0) -> torch.Tensor:
+    """Plain version of raw K2; see :func:`run_backward_raw`."""
+    return run_backward_plain(inst, pix_tiles, tile_start, tile_count,
+                              n_tiles, (grid_x, tile_base))
+
+
+def run_backward_raw(inst, pix_tiles, tile_start, tile_count, n_tiles: int,
+                     grid_x: int, tile_base: int = 0) -> torch.Tensor:
+    """Raw K2 (``_bwd_kernel`` under ``GSCREAM_KERNEL_COEFF=1``): as
+    :func:`run_backward`, on raw records, with each tile's origin and the
+    shifts ``sx = ox − rint(mx)``, ``sy = oy − rint(my)`` derived in the
+    kernel as in :func:`run_forward_raw` (``csrc/rasterize_bwd.cu``)."""
+    if inst.device.type == "cpu":
+        return run_backward_raw_plain(inst, pix_tiles, tile_start,
+                                      tile_count, n_tiles, grid_x, tile_base)
+    cb.check(inst, "inst", torch.float32, (None, ILANES))
+    cb.check(pix_tiles, "pix_tiles", torch.float32, (n_tiles, 8, PIX))
+    cb.check(tile_start, "tile_start", torch.int32, (n_tiles,))
+    cb.check(tile_count, "tile_count", torch.int32, (n_tiles,))
+    out = torch.empty_like(inst)
+    work = _tile_schedule(n_tiles, inst.device)
+    fn = cb.function("rasterize_bwd", "gs_tile_backward_raw", "ppppiiiippp")
+    rc = fn(cb.ptr(inst), cb.ptr(pix_tiles), cb.ptr(tile_start),
+            cb.ptr(tile_count), n_tiles, inst.shape[0], grid_x, tile_base,
+            cb.ptr(work), cb.ptr(out), cb.stream_of(inst))
+    cb.raise_on_error(rc, "tile_backward_raw")
+    run_backward_raw.launches += 1
+    return out
+
+
+run_backward_raw.launches = 0
+
+
+def tile_forward(inst, tile_start, tile_count, n_tiles: int, raw: bool,
+                 grid_x: int, tile_base: int = 0) -> torch.Tensor:
+    """K1 in the records' mode: :func:`run_forward_raw` or
+    :func:`run_forward` (looked up per call)."""
+    if raw:
+        return run_forward_raw(inst, tile_start, tile_count, n_tiles,
+                               grid_x, tile_base)
+    return run_forward(inst, tile_start, tile_count, n_tiles)
+
+
+def tile_backward(inst, pix_tiles, tile_start, tile_count, n_tiles: int,
+                  raw: bool, grid_x: int, tile_base: int = 0) -> torch.Tensor:
+    """K2 in the records' mode: :func:`run_backward_raw` or
+    :func:`run_backward`."""
+    if raw:
+        return run_backward_raw(inst, pix_tiles, tile_start, tile_count,
+                                n_tiles, grid_x, tile_base)
+    return run_backward(inst, pix_tiles, tile_start, tile_count, n_tiles)
 
 
 def pergauss_chain(pg, mean2d, conic, opacity):
@@ -481,15 +636,30 @@ def segment_reduce_grads(conv: torch.Tensor,
     return segment_reduce_rows(ge, binning.offsets)
 
 
+def scatter_reduce_sums(rows: torch.Tensor,
+                        binning: Binning) -> torch.Tensor:
+    """``GSCREAM_SCATTER_REDUCE`` (rasterize_tiled.py:1227-1231, an XLA
+    ``segment_sum``): K2's rows added into their gaussians' rows by
+    ``index_add_`` over ``gauss_id``.  On the card the adds are atomic,
+    so their order, and a sum's last bits, change from run to run; the
+    result agrees with K3's to rtol 1e-5.  Nothing is sanitized, as in the
+    JAX package."""
+    n = binning.offsets.shape[0] - 1
+    cap = binning.gauss_id.shape[0]
+    return torch.zeros((n, ILANES), dtype=torch.float32,
+                       device=rows.device).index_add_(
+        0, binning.gauss_id.long(), rows[:cap])
+
+
 def per_gaussian_sums(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
     """K2's (capacity, 16) rows in sorted order → (N, 16) sums over each
     gaussian's instances (rasterize_tiled.py:1224-1237): K4, the column
     scatter and K3 under ``GSCREAM_REORDER=cm``, the row scatter and K7
-    otherwise."""
+    otherwise, and :func:`scatter_reduce_sums` under
+    ``GSCREAM_SCATTER_REDUCE``."""
     if os.environ.get("GSCREAM_SCATTER_REDUCE"):
-        raise NotImplementedError(
-            "GSCREAM_SCATTER_REDUCE (an atomic segment_sum) is not "
-            "ported; unset it")
+        with record_function("raster_bwd/scatter_reduce"):
+            return scatter_reduce_sums(rows, binning)
     if _reorder_mode() == "cm":
         with record_function("raster_bwd/K4 unpack + reorder"):
             ge = emission_columns(rows, binning)
@@ -525,10 +695,11 @@ class _RasterizeTiled(torch.autograd.Function):
                 binning: Binning, width: int, height: int):
         gx = -(-width // TILE_W)
         gy = -(-height // TILE_H)
+        raw = kernel_coeff()
         inst = pack_instance_data(mean2d, conic, opacity, colors, depth,
-                                  unc, binning, gx)
-        tiles = run_forward(inst, binning.tile_start, binning.tile_count,
-                            gx * gy)
+                                  unc, binning, gx, raw)
+        tiles = tile_forward(inst, binning.tile_start, binning.tile_count,
+                             gx * gy, raw, gx)
         img = tiles_to_image(tiles, width, height)     # (8,H,W)
         raw_c, d_img, u_img, t_img = img[1:4], img[4], img[5], img[6]
         color = raw_c + t_img[None] * bg[:, None, None]
@@ -536,6 +707,7 @@ class _RasterizeTiled(torch.autograd.Function):
                               conic, opacity)
         ctx.binning = binning
         ctx.size = (width, height)
+        ctx.raw = raw
         return color.permute(1, 2, 0), d_img, u_img, t_img
 
     @staticmethod
@@ -547,9 +719,10 @@ class _RasterizeTiled(torch.autograd.Function):
         with record_function("raster_bwd/K2 tile_backward"):
             pix = pixel_rows(raw_c, d_img, u_img, t_img, bg, gc, g_depth,
                              g_unc, g_tfin, *ctx.size)
-            rows = run_backward(inst, pix, binning.tile_start,
-                                binning.tile_count,
-                                binning.tile_start.shape[0])
+            n_tiles = binning.tile_start.shape[0]
+            rows = tile_backward(inst, pix, binning.tile_start,
+                                 binning.tile_count, n_tiles, ctx.raw,
+                                 -(-ctx.size[0] // TILE_W))
         pg = per_gaussian_sums(rows, binning)
         with record_function("raster_bwd/chain"):
             grads = pergauss_chain(pg, mean2d, conic, op)
@@ -570,31 +743,44 @@ def rasterize_tiled(mean2d, conic, opacity, colors, depth, unc,
 
 
 def build_binning(splats: Splats, opacity, colors, unc, capacity: int,
-                  width: int, height: int) -> Binning:
+                  width: int, height: int, precise: bool = True) -> Binning:
     """The JAX package's emission selector (rasterize_tiled.py:1259-1292),
-    with its conditions, read at call time: ``GSCREAM_EMIT=pallas`` takes
-    :func:`~.binning.bin_instances_pallas` when the capacity is a
-    multiple of 1024, else (as for ``GSCREAM_EMIT=xla``, the default)
-    :func:`~.binning.bin_instances`.  Where the JAX package would take a
-    mode the port does not have — raw-coefficient kernels
-    (``GSCREAM_KERNEL_COEFF=1``), full-rect emission
-    (``GSCREAM_ROW_TIGHT=0`` or no ``t_iso``) or the XLA build's fused
-    sort key (``GSCREAM_SORT_FUSED``) — this raises
-    ``NotImplementedError``.
-    Call it under ``torch.no_grad()``: the binning carries no gradient."""
+    condition for condition, read at call time: the Pallas-emission build
+    :func:`~.binning.bin_instances_pallas` only under
+    ``GSCREAM_EMIT=pallas`` with ``precise``, not in raw mode, with
+    ``t_iso``, ``GSCREAM_ROW_TIGHT`` not ``0``, ``GSCREAM_SORT_FUSED`` not
+    ``1`` and a capacity that is a multiple of 1024; otherwise
+    :func:`~.binning.bin_instances` (row-tight or full-rect emission, the
+    precise or the quantized sort).  Call it under ``torch.no_grad()``:
+    the binning carries no gradient."""
     env = os.environ.get
-    if env("GSCREAM_KERNEL_COEFF", "0") == "1":
-        raise NotImplementedError("GSCREAM_KERNEL_COEFF=1 (raw-coefficient "
-                                  "kernels) is not ported")
-    if env("GSCREAM_ROW_TIGHT") == "0":
-        raise NotImplementedError("GSCREAM_ROW_TIGHT=0 (full-rect "
-                                  "emission) is not ported")
-    if (env("GSCREAM_EMIT", "xla") == "pallas" and splats.t_iso is not None
+    if (env("GSCREAM_EMIT", "xla") == "pallas" and precise
+            and not kernel_coeff() and not full_rect(splats)
             and env("GSCREAM_SORT_FUSED") != "1" and capacity % 1024 == 0):
         return bin_instances_pallas(splats, opacity, colors, unc, capacity,
                                     width, height, TILE_W, TILE_H)
-    if env("GSCREAM_SORT_FUSED"):
-        raise NotImplementedError("GSCREAM_SORT_FUSED (the fused sort key "
-                                  "of the XLA build) is not ported")
-    # splats without t_iso (full-rect emission) raise in bin_instances
-    return bin_instances(splats, capacity, width, height, TILE_W, TILE_H)
+    return bin_instances(splats, capacity, width, height, TILE_W, TILE_H,
+                         precise)
+
+
+def render_tiled(means3d, scales, rots, colors, opacity, unc, camera, bg,
+                 capacity: int = 2 ** 21, scale_modifier: float = 1.0):
+    """preprocess → bin → rasterize (rasterize_tiled.py:1295-1324).
+    Returns (TiledOut, aux): ``aux`` holds the splats' ``radius``, the
+    binning's ``num_instances`` (its :func:`~.binning.overflow_demand`,
+    to compare with ``capacity``: an overflow is reported, never
+    silent), ``capacity`` and the ``splats``."""
+    splats = preprocess(means3d, scales, rots, camera.w2c, camera.full_proj,
+                        camera.width, camera.height, camera.tan_fovx,
+                        camera.tan_fovy, scale_modifier, tile_w=TILE_W,
+                        tile_h=TILE_H, opacity=opacity)
+    with torch.no_grad():
+        binning = build_binning(splats, opacity, colors, unc, capacity,
+                                camera.width, camera.height)
+    out = rasterize_tiled(splats.mean2d, splats.conic, opacity, colors,
+                          splats.depth, unc, binning, bg, camera.width,
+                          camera.height)
+    aux = {"radius": splats.radius,
+           "num_instances": overflow_demand(binning),
+           "capacity": capacity, "splats": splats}
+    return out, aux

@@ -16,7 +16,10 @@
 The training blur is two grouped ``F.conv2d`` calls, as the JAX package
 leaves it to XLA's convolution: no kernel of the repo's own; the
 evaluation blur sums its five taps in XLA's order (:func:`_blur_reflect`).  cuDNN's
-TF32 is off (``precision.py``).  Images are (C,H,W) float32.
+TF32 is off (``precision.py``).  Images are (C,H,W) float32, or bfloat16
+in the training SSIM (the ``loss_dtype="bfloat16"`` loss head): the
+window then is bfloat16 too, and the means accumulate in float32
+(ssim.py:41-43, :82, :90).
 """
 from __future__ import annotations
 
@@ -74,8 +77,9 @@ def _blur_reflect(img: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
 
 def _ssim_map(img1, img2, window_size: int = 11, sigma: float = 1.5,
               padding: str = "zero", c1: float = C1, c2: float = C2):
+    # the window follows the image's dtype, so a bfloat16 map stays one
     k = torch.as_tensor(_gaussian_kernel(window_size, sigma),
-                        device=img1.device)
+                        device=img1.device, dtype=img1.dtype)
     blur = functools.partial(_blur_reflect if padding == "reflect"
                              else _blur, k1d=k)
     mu1 = blur(img1)
@@ -96,15 +100,19 @@ def _ssim_map(img1, img2, window_size: int = 11, sigma: float = 1.5,
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
-    """Training SSIM (loss_utils.py:139-168): zero padding, mean."""
-    return torch.mean(_ssim_map(img1, img2, window_size))
+    """Training SSIM (loss_utils.py:139-168): zero padding, mean (in at
+    least float32)."""
+    m = _ssim_map(img1, img2, window_size)
+    return torch.mean(m, dtype=torch.promote_types(m.dtype, torch.float32))
 
 
 def ssim_masked(img1: torch.Tensor, img2: torch.Tensor, mask: torch.Tensor,
                 window_size: int = 11) -> torch.Tensor:
     """Masked training SSIM (loss_utils.py:172-199): map·mask, then the
     mean over *all* pixels (the reference's normalization)."""
-    return torch.mean(_ssim_map(img1, img2, window_size) * mask)
+    m = _ssim_map(img1, img2, window_size)
+    return torch.mean(m * mask.to(m.dtype),
+                      dtype=torch.promote_types(m.dtype, torch.float32))
 
 
 def kornia_ssim_map(img1: torch.Tensor, img2: torch.Tensor,

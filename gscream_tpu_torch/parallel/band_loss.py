@@ -100,11 +100,9 @@ def band_loss_terms(out_band, row0: int, gt_image, gt_mask, midas_depth,
     travel between bands).  ``group`` holds the ``n_bands`` ranks of the
     view in band order, this one at ``band``.  Both branches' partial sums
     are taken, as in the JAX package, and ``is_ref`` picks one.  Returns
-    (loss, l1), the same on every band rank of the view."""
-    if opt.loss_dtype != "float32":
-        raise NotImplementedError(
-            f"loss_dtype={opt.loss_dtype!r}: only the float32 loss path "
-            "is ported")
+    (loss, l1), the same on every band rank of the view.  Like the JAX
+    package's band loss, which has no dtype branch, it computes in
+    float32 whatever ``opt.loss_dtype`` says."""
     dev = out_band.depth.device
     bh = out_band.depth.shape[0]
     img_band = out_band.color.permute(2, 0, 1)         # (3, bh, W)

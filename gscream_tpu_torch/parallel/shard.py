@@ -104,12 +104,16 @@ class _RasterizeBand(torch.autograd.Function):
                 band: int):
         gx, _, _, rows = _band_geometry(width, height, n_bands)
         bh = rows * TILE_H
-        # the records carry tile-local coefficients packed from each
-        # instance's global tile id, so K1 needs no tile offset
+        # legacy records carry tile-local coefficients packed from each
+        # instance's global tile id, so K1 needs no tile offset; raw K1
+        # finds its tiles' origins from the band's first global tile
+        # (shard.py:90-99)
+        raw = rt.kernel_coeff()
         inst = rt.pack_instance_data(mean2d, conic, opacity, colors,
-                                     depth, unc, binning, gx)
+                                     depth, unc, binning, gx, raw)
         ts, tc, n_local = _band_slices(binning, gx, rows, band)
-        tiles = rt.run_forward(inst, ts, tc, n_local)        # (L, 8, PIX)
+        tiles = rt.tile_forward(inst, ts, tc, n_local, raw, gx,
+                                band * n_local)              # (L, 8, PIX)
         img = tiles.reshape(rows, gx, 8, TILE_H, TILE_W).permute(
             2, 0, 3, 1, 4).reshape(8, bh, gx * TILE_W)[:, :, :width]
         # K1 renders the last band's rows past ``height``; they are zeroed,
@@ -122,6 +126,7 @@ class _RasterizeBand(torch.autograd.Function):
                               conic, opacity)
         ctx.binning = binning
         ctx.geom = (width, height, n_bands, band)
+        ctx.raw = raw
         return color.permute(1, 2, 0), d_img, u_img, t_img
 
     @staticmethod
@@ -140,7 +145,8 @@ class _RasterizeBand(torch.autograd.Function):
         with record_function("raster_bwd/K2 tile_backward"):
             pix = rt.pixel_rows(raw_c, d_img, u_img, t_img, bg, gc,
                                 g_depth, g_unc, g_tfin, width, bh)
-            grad_rows = rt.run_backward(inst, pix, ts, tc, n_local)
+            grad_rows = rt.tile_backward(inst, pix, ts, tc, n_local,
+                                         ctx.raw, gx, band * n_local)
         # K2 zeroed the slots outside the band: the sums are its partials
         pg = rt.per_gaussian_sums(grad_rows, ctx.binning)
         with record_function("raster_bwd/chain"):

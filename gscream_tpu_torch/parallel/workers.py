@@ -113,12 +113,15 @@ def steps_worker(rank: int, world: int, device, shape: Sequence[int], cfg,
 
 
 def kernel_wrappers() -> Dict:
-    """The ten kernel wrappers by name, looked up on their modules now;
-    each counts its launches in its ``launches`` attribute (never on the
-    CPU, where the wrappers take their plain versions)."""
+    """The kernel wrappers by name (the ten kernels', and raw K1's and
+    K2's), looked up on their modules now; each counts its launches in its
+    ``launches`` attribute (never on the CPU, where the wrappers take
+    their plain versions)."""
     from ..ops import emission, rasterize_tiled, shuffle
     return {"tile_forward": rasterize_tiled.run_forward,
            "tile_backward": rasterize_tiled.run_backward,
+           "tile_forward_raw": rasterize_tiled.run_forward_raw,
+           "tile_backward_raw": rasterize_tiled.run_backward_raw,
            "segment_reduce": rasterize_tiled.segment_reduce_cm,
            "unpack_columns": shuffle.unpack_columns,
            "expand_gauss_rows": emission.expand_gauss_rows,

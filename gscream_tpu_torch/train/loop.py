@@ -35,7 +35,7 @@ import torch
 from ..config import RunConfig
 from ..device import resolve_device
 from ..model.densify import adjust_anchors
-from ..model.scaffold import ScaffoldConfig, init_scaffold
+from ..model.scaffold import ScaffoldConfig, init_scaffold, n_alive
 from ..precision import ensure_fp32_matmuls
 from ..parallel.shard import (check_replicas, make_sharded_train_step,
                               sharded_view_batch)
@@ -409,7 +409,7 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
         if not main_rank:
             return ts_new
         if it % 100 == 0 or it == iters:
-            anchors = int(ts_new.scaffold.alive.sum())
+            anchors = int(n_alive(ts_new.scaffold))
             logger.info(
                 "iter %d/%d loss %.5f anchors %d instances %d "
                 "(%.1f it/s)", it, iters, loss, anchors, rec["n_inst"],

@@ -165,14 +165,15 @@ def crossattn_update(ca, feat, tok: CrossTokens, ema: float, is_ref: bool,
 
 
 def splat_view(params, mlps, scaffold: ScaffoldState, camera: Camera,
-               screen_zero, cfg: ScaffoldConfig, capacity: int):
+               screen_zero, cfg: ScaffoldConfig, capacity: int,
+               precise_sort: bool = True):
     """Decode, preprocess and bin one view from explicit (differentiable)
     parameters; returns (Decoded, Splats, the projected means plus
     ``screen_zero``, Binning).  The binning goes through the emission
-    selector ``build_binning`` (``GSCREAM_EMIT``) under
-    ``torch.no_grad()`` (the JAX ``stop_gradient``,
-    rasterize_tiled.py:1276-1277): gradients reach the gaussians only
-    through the rasterizer's own arguments."""
+    selector ``build_binning`` (``GSCREAM_EMIT``; ``precise_sort=False``
+    takes the quantized sort key) under ``torch.no_grad()`` (the JAX
+    ``stop_gradient``, rasterize_tiled.py:1276-1277): gradients reach the
+    gaussians only through the rasterizer's own arguments."""
     st = scaffold._replace(params=params, mlps=mlps)
     w, h = camera.width, camera.height
     with record_function("step/decode"):
@@ -185,16 +186,19 @@ def splat_view(params, mlps, scaffold: ScaffoldState, camera: Camera,
         mean2d = splats.mean2d + screen_zero
     with record_function("step/binning"), torch.no_grad():
         binning = build_binning(splats, dec.opacity, dec.color,
-                                dec.uncertainty, capacity, w, h)
+                                dec.uncertainty, capacity, w, h,
+                                precise_sort)
     return dec, splats, mean2d, binning
 
 
 def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
-                       bg, screen_zero, cfg: ScaffoldConfig, capacity: int):
+                       bg, screen_zero, cfg: ScaffoldConfig, capacity: int,
+                       precise_sort: bool = True):
     """Decode + rasterize from explicit (differentiable) parameters;
     returns (TiledOut, Decoded, Splats, Binning) (:func:`splat_view`)."""
     dec, splats, mean2d, binning = splat_view(
-        params, mlps, scaffold, camera, screen_zero, cfg, capacity)
+        params, mlps, scaffold, camera, screen_zero, cfg, capacity,
+        precise_sort)
     with record_function("step/forward"):
         out = rasterize_tiled(mean2d, splats.conic, dec.opacity, dec.color,
                               splats.depth, dec.uncertainty, binning, bg,
@@ -204,12 +208,16 @@ def render_from_params(params, mlps, scaffold: ScaffoldState, camera: Camera,
 
 def loss_terms(out, gt_image, gt_mask, midas_depth, fg_box_mask,
                opt: OptimConfig, is_ref: bool):
-    """RGB + depth losses (train.py:535-573).  Images are (C,H,W)."""
-    if opt.loss_dtype != "float32":
-        raise NotImplementedError(
-            f"loss_dtype={opt.loss_dtype!r}: only the float32 loss path "
-            "is ported")
+    """RGB + depth losses (train.py:535-573).  Images are (C,H,W).
+
+    ``opt.loss_dtype == "bfloat16"`` runs the RGB L1/SSIM maps in
+    bfloat16 with float32 means (step.py:171-173); the depth terms stay
+    float32 (their scale/shift fit solves normal equations that cancel
+    catastrophically in bfloat16)."""
     img = out.color.permute(2, 0, 1)
+    if opt.loss_dtype == "bfloat16":
+        img = img.to(torch.bfloat16)
+        gt_image = gt_image.to(torch.bfloat16)
     if is_ref:
         l1 = L.l1_loss(img, gt_image)
         loss = opt.refer_rgb_lr * ((1 - opt.lambda_dssim) * l1
@@ -293,7 +301,8 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                cfg: ScaffoldConfig, opt: OptimConfig, is_ref: bool,
                use_crossattn: bool = False, capacity: int, width: int,
                height: int, accumulate: bool, white_bg: bool = False,
-               spatial_lr_scale: float = 1.0, feat_frozen: bool = False):
+               spatial_lr_scale: float = 1.0, feat_frozen: bool = False,
+               precise_sort: bool = True):
     """One optimization iteration.  Returns (new_state, StepAux); the
     parameters and moments are updated in place, so ``ts`` itself holds
     the new values too — except when ``aux.packed`` shows an instance
@@ -303,7 +312,8 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     gt_image (3,H,W) · gt_mask (1,H,W) · midas_depth (1,H,W) ·
     fg_box_mask (H,W) random box for the ref-view fg depth term ·
     cross_box (4,) int32 patch for the phase-2 token sampling (zeros
-    when None).
+    when None) · ``precise_sort=False`` bins with the quantized sort key
+    (``bin_instances``).
     """
     if (camera.width, camera.height) != (width, height):
         raise ValueError(f"camera is {camera.width}x{camera.height}, the "
@@ -336,7 +346,8 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     g = loss_and_grads(scaffold, camera, gt_image, gt_mask, midas_depth,
                        fg_box_mask, cfg=cfg, opt=opt, is_ref=is_ref,
                        capacity=capacity, masks=grad_masks,
-                       white_bg=white_bg, cross=cross)
+                       white_bg=white_bg, cross=cross,
+                       precise_sort=precise_sort)
 
     with torch.no_grad():
         aux = pack_aux(g.loss.detach(), g.l1.detach(),
@@ -416,7 +427,8 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
                    opt: OptimConfig, is_ref: bool, capacity: int, masks,
                    white_bg: bool = False,
                    cross: Optional[CrossTokens] = None,
-                   render_loss=None, seed=None) -> StepGrads:
+                   render_loss=None, seed=None,
+                   precise_sort: bool = True) -> StepGrads:
     """The loss of one view and its gradients with respect to the
     parameters of every group that ``masks`` updates and to the projected
     means (``value_and_grad`` of ``loss_fn``, step.py:255-274).  With
@@ -448,7 +460,7 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
     if render_loss is None:
         out, dec, splats, binning = render_from_params(
             render_params, scaffold.mlps, scaffold, camera, bg, screen_zero,
-            cfg, capacity)
+            cfg, capacity, precise_sort)
         with record_function("step/losses"):
             loss, l1 = loss_terms(out, gt_image, gt_mask, midas_depth,
                                   fg_box_mask, opt, is_ref)

@@ -190,16 +190,19 @@ def test_expand2_rounds_half_to_even():
 
 @pytest.mark.timeout(120)
 def test_build_binning_selector(case, monkeypatch):
-    """``GSCREAM_EMIT=pallas`` takes the Pallas build only at capacities
-    that are multiples of 1024, like the JAX selector; modes the port
-    lacks raise instead of computing something else."""
+    """``GSCREAM_EMIT=pallas`` takes the Pallas build only where the JAX
+    selector does (rasterize_tiled.py:1278-1292): at capacities that are
+    multiples of 1024, with the precise sort, legacy records, ``t_iso``,
+    row-tight emission and the lexicographic sort.  Under each other
+    switch it takes the XLA build, ``cols16`` ``None``, as JAX does."""
     from gscream_tpu_torch.ops.rasterize_tiled import build_binning
     ts, op, colors, unc = case["inputs"]
 
-    def route(cap):
-        return build_binning(ts, op, colors, unc, cap, W, H).cols16
+    def route(cap, splats=ts, precise=True):
+        return build_binning(splats, op, colors, unc, cap, W, H,
+                             precise).cols16
     for var in ("GSCREAM_EMIT", "GSCREAM_KERNEL_COEFF", "GSCREAM_ROW_TIGHT",
-                "GSCREAM_SORT_FUSED"):
+                "GSCREAM_SORT_FUSED", "GSCREAM_MXU_POWER"):
         monkeypatch.delenv(var, raising=False)
     assert route(2048) is None
     monkeypatch.setenv("GSCREAM_EMIT", "pallas")
@@ -209,7 +212,12 @@ def test_build_binning_selector(case, monkeypatch):
                      ("GSCREAM_ROW_TIGHT", "0"), ("GSCREAM_SORT_FUSED", "1")):
         with monkeypatch.context() as m:
             m.setenv(var, val)
-            with pytest.raises(NotImplementedError):
-                route(2048)
-    with pytest.raises(NotImplementedError):
-        build_binning(ts._replace(t_iso=None), op, colors, unc, 2048, W, H)
+            assert route(2048) is None, var
+    assert route(2048, precise=False) is None
+    assert route(2048, splats=ts._replace(t_iso=None)) is None
+    with monkeypatch.context() as m:
+        # JAX refuses raw records with the TPU's MXU power contraction
+        m.setenv("GSCREAM_KERNEL_COEFF", "1")
+        m.setenv("GSCREAM_MXU_POWER", "1")
+        with pytest.raises(RuntimeError, match="MXU_POWER"):
+            route(2048)

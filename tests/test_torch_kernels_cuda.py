@@ -9,6 +9,9 @@ where the T < 1e-4 stop moves by one instance (≤ 0.1% of the outputs),
 K2 per output lane within 1e-3·scale + 1e-2·|plain| (scale = max |plain|)
 except ≤ 0.5% of the rows, all within 5e-2·scale (the sums run in other
 orders, and Total − prefix cancels digits), and bit-equal on a rerun.
+Raw K1 and K2 (``GSCREAM_KERNEL_COEFF=1``) within the same tolerances of
+their plain twins and bit-equal to legacy K1 and K2 on the same binning,
+on the whole frame and per band.
 K1 and K2 also on a tile of ≥ 4,096 instances, on opacities near 0.99
 and on a sparse scene with empty tiles, where they must blend the same
 pairs: at every pixel, K1's Σw is bit-equal to the weights K2 gives the
@@ -306,6 +309,68 @@ def test_tile_backward_band_zero_fills_head(dev, n_bands):
         assert torch.equal(got[lo:hi], full[lo:hi])
         if hi > lo:
             _rows_close(got[lo:hi], ref[lo:hi])
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_raw_tile_kernels(dev, seed):
+    """Raw K1 and K2 (``GSCREAM_KERNEL_COEFF=1``) on the raw records of
+    the same binning: within K1's and K2's tolerances of their plain
+    twins, bit-equal on a rerun, and bit-equal to legacy K1 and K2 on the
+    legacy records (both derive the coefficients one rounding per
+    operation, in the same order)."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    (inst, pix, ts, tc, n_tiles), b = _backward_inputs(dev, seed)
+    s, (colors, op, unc), w, _ = _splats(dev, seed)
+    gx = -(-w // 32)
+    raw = rt.pack_instance_data(s.mean2d, s.conic, op, colors, s.depth, unc,
+                                b, gx, raw=True)
+    k1 = rt.run_forward_raw(raw, ts, tc, n_tiles, gx)
+    k2 = rt.run_backward_raw(raw, pix, ts, tc, n_tiles, gx)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, rt.run_forward(inst, ts, tc, n_tiles))
+    assert torch.equal(k2, rt.run_backward(inst, pix, ts, tc, n_tiles))
+    assert torch.equal(k2, rt.run_backward_raw(raw, pix, ts, tc, n_tiles,
+                                               gx))
+    ref1 = rt.run_forward_raw_plain(raw, ts, tc, n_tiles, gx)
+    bad = (k1 - ref1).abs() > 1e-4 * ref1.abs().clamp_min(1.0)
+    assert bad.float().mean() <= 1e-3
+    n = int(b.num_instances)
+    ref2 = rt.run_backward_raw_plain(raw, pix, ts, tc, n_tiles, gx)
+    assert not k2[n:].any() and float(ref2[:n, 6].abs().max()) > 0
+    _rows_close(k2[:n], ref2[:n])
+
+
+@pytest.mark.parametrize("n_bands", [2, 3])
+def test_raw_tile_kernels_on_bands(dev, n_bands):
+    """Raw K1 and K2 per band with the band's first global tile as
+    ``tile_base``: the stitched K1 bands bit-equal to the whole frame,
+    each band's K2 rows bit-equal to the whole frame's in its slots and
+    zero outside them."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    from gscream_tpu_torch.parallel.shard import (_band_geometry,
+                                                  _band_slices, pad_tiles)
+    (_, pix, ts, tc, n_tiles), b = _backward_inputs(dev, 0)
+    s, (colors, op, unc), w, h = _splats(dev, 0)
+    gx, gy, gy_pad, rows = _band_geometry(w, h, n_bands)
+    raw = rt.pack_instance_data(s.mean2d, s.conic, op, colors, s.depth, unc,
+                                b, gx, raw=True)
+    full1 = rt.run_forward_raw(raw, ts, tc, n_tiles, gx)
+    full2 = rt.run_backward_raw(raw, pix, ts, tc, n_tiles, gx)
+    bb = pad_tiles(b, w, h, n_bands)
+    pix = torch.cat([pix, pix.new_zeros(((gy_pad - gy) * gx,)
+                                        + pix.shape[1:])])
+    parts = []
+    for band in range(n_bands):
+        ts_b, tc_b, nl = _band_slices(bb, gx, rows, band)
+        parts.append(rt.run_forward_raw(raw, ts_b, tc_b, nl, gx, band * nl))
+        got = rt.run_backward_raw(raw, pix[band * nl:(band + 1) * nl],
+                                  ts_b, tc_b, nl, gx, band * nl)
+        torch.cuda.synchronize()
+        lo, hi = int(ts_b[0]), int(ts_b[-1] + tc_b[-1])
+        assert torch.equal(got[lo:hi], full2[lo:hi])
+        assert not got[:lo].any() and not got[hi:].any()
+    tiles = torch.cat(parts)
+    assert torch.equal(tiles[:n_tiles], full1)
 
 
 # scenes for the schedule, the batching and the early stops of K1 and K2:

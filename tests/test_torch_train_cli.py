@@ -180,3 +180,45 @@ def test_entry_points_want_a_card(tmp_path):
     import evaluate_torch
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_torch.main(["--model_path", str(tmp_path)])
+
+
+@pytest.mark.timeout(180)
+def test_bf16_loss_dtype_matches_train_scene(tmp_path):
+    """``--loss_dtype bfloat16`` (and ``--save_iterations``, accepted and
+    unused, as ``train.py`` parses it) at 64×64: the CLI's losses are
+    those of one in-process ``train_scene`` with the same options
+    (rtol 1e-5: the two processes run different thread counts), and they
+    differ from a float32 run's."""
+    import torch
+    import train_torch
+    from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
+    from gscream_tpu_torch.data.synthetic import make_scene
+    from gscream_tpu_torch.train.loop import train_scene
+    model = str(tmp_path / "model")
+    _run([os.path.join(ROOT, "train_torch.py"), "--synthetic",
+          "--synthetic_size", "64", "--iterations", "4", "--model_path",
+          model, "--loss_dtype", "bfloat16", "--save_iterations", "2", "4",
+          "--skip_render", "--skip_eval", "--test_iterations"] + SMALL,
+         tmp_path)
+    with open(os.path.join(model, "cfg.json")) as f:
+        assert json.load(f)["optim"]["loss_dtype"] == "bfloat16"
+    with open(os.path.join(model, "train_log.json")) as f:
+        cli = json.load(f)["losses"]
+    scene = make_scene(device="cpu", **dict(train_torch.SYNTHETIC, width=64,
+                                            height=64, seed=0))
+    losses = {}
+    for dt in ("bfloat16", "float32"):
+        run = RunConfig(model=ModelConfig(feat_dim=8, n_offsets=2,
+                                          voxel_size=0.1,
+                                          anchor_capacity=512,
+                                          instance_capacity=4096),
+                        optim=OptimConfig(iterations=4, loss_dtype=dt),
+                        test_iterations=())
+        torch.manual_seed(0)
+        _, log = train_scene(scene.views, scene.ref_index, scene.points, run,
+                             out_dir=str(tmp_path / dt), capacity=4096,
+                             iterations=4, device="cpu")
+        losses[dt] = log.losses
+    assert len(cli) == 4
+    np.testing.assert_allclose(cli, losses["bfloat16"], rtol=1e-5)
+    assert not np.allclose(losses["bfloat16"], losses["float32"], rtol=1e-5)

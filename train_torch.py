@@ -74,6 +74,10 @@ def parse_args(argv=None):
     for name in ("start_stat", "update_from", "update_interval",
                  "update_until"):
         p.add_argument(f"--{name}", type=int, default=getattr(d, name))
+    p.add_argument("--loss_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the RGB L1/SSIM maps' dtype (bfloat16: float32 "
+                        "means, the depth terms and the render float32)")
     p.add_argument("-r", "--resolution", type=int, default=-1)
     p.add_argument("--anchor_capacity", type=int, default=1 << 17)
     p.add_argument("--instance_capacity", type=int, default=1 << 20)
@@ -84,6 +88,8 @@ def parse_args(argv=None):
                    help="the synthetic views' width and height in pixels")
     p.add_argument("--skip_render", action="store_true")
     p.add_argument("--skip_eval", action="store_true")
+    p.add_argument("--save_iterations", type=int, nargs="*", default=None,
+                   help="accepted as train.py accepts it; unused")
     p.add_argument("--test_iterations", type=int, nargs="*",
                    default=list(RunConfig.test_iterations),
                    help="iterations that log the test split's PSNR")
@@ -254,7 +260,8 @@ def train_and_evaluate(args, dev, mesh, rank: int):
                 "other_depth_lr_smooth", "crossattn_lr_init",
                 "crossattn_lr_final", "enable_crossattn_refview",
                 "enable_crossattn_otherview", "start_stat", "update_from",
-                "update_interval", "update_until")}),
+                "update_interval", "update_until")},
+            loss_dtype=args.loss_dtype),
         test_iterations=tuple(args.test_iterations),
         seed=args.seed)
     if rank == 0:
