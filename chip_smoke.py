@@ -63,8 +63,13 @@ catches its own failure):
     step and K3, K4, K5 and K6 never; the environment is restored after;
 (f) the training loop: ``train_scene`` for 48 iterations on the same
     model and targets (compressed schedule: densifications, phase 2, a
-    checkpoint), a second run resumed from the checkpoint bit-equal, the
-    costs of densification and checkpoints, one phase-2 step profiled;
+    checkpoint) at pipeline depth 3 (``GSCREAM_PIPELINE``), the same
+    schedule at depths 1 and 3 in turns, each bit-equal to it (every
+    state tensor, the losses, steps and events), the wall ms per
+    iteration of each depth and phase, a second run resumed from the
+    checkpoint bit-equal, the costs of densification and checkpoints, the
+    synchronizing calls of one launched phase-1 and phase-2 step (sync
+    debug mode "warn", by file:line), one phase-2 step profiled;
 (g) evaluation and the spiral split at full width on the model (f)
     trained: the test split (views 4-9, teacher targets, the central
     box as mask) through ``render_set`` with K1, K5 and K6 counted,
@@ -94,7 +99,10 @@ catches its own failure):
     the single-device ``train_step`` (TRAJ_*), (2, 1)'s first loss to
     the mean of its views' losses (DP_LOSS_RTOL), the replicas bit-equal, wall ms per
     step and launches per rank-step; then ``train_torch.py --synthetic
-    --mesh_tiles 2`` as two ranks against one process;
+    --mesh_tiles 2`` as two ranks against one process; then
+    ``train_scene`` at mesh (1, 2) in two ranks at pipeline depths 1
+    and 3, with an overflow re-run, a densification and phase 2,
+    bit-equal;
 (i) the JAX package's other configurations, on a fresh copy of the
     model at view 0 of the training targets: raw K1 and K2
     (``GSCREAM_KERNEL_COEFF=1``) on the arguments one ``loss_and_grads``
@@ -116,7 +124,12 @@ catches its own failure):
     spawned ranks with raw records against legacy; then 3 ``train_step``
     calls per mode with the launch counters reset just before each and
     read just after (each mode launches exactly its route's kernels once
-    a step), their wall ms and instances.
+    a step), their wall ms and instances;
+(j) the port's bench: ``bench_torch.py`` in a subprocess, its JSON line
+    (every key of ``bench.py``'s, a finite positive rate, no overflow)
+    printed, again with ``GSCREAM_TRACE`` set (a trace must be written),
+    then one iteration of its workload with the launch counters reset
+    just before and read just after (``launches_bench``).
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), raw K1 and K2 from phase (i), the others
@@ -124,7 +137,8 @@ from phase (d), with the
 render path's, each training route's, the loop's and phase (g)'s
 launch counts (``launches_eval``, ``launches_spiral``), phase (h)'s
 summed over its ranks and meshes (``launches_sharded``), phase (i)'s
-over its steps (``launches_modes``) and the render
+over its steps (``launches_modes``), phase (j)'s per bench iteration
+(``launches_bench``) and the render
 path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
 profiler's device time and launches per call; K1's and K2's lines also
 carry the tile-count
@@ -137,11 +151,11 @@ them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
-non-zero without printing a result.  ``--phase h`` (``--phase i``)
-builds the kernels and runs phase (h) (phase (i)) alone (on a host with
-two or more cards phase (h)'s ranks take a card each, over NCCL),
-printing its launches (phase (i): raw K1's and K2's lines too) and the
-card's line but no result line.
+non-zero without printing a result.  ``--phase f|h|i|j`` builds the
+kernels and runs that phase alone (on a host with two or more cards
+phase (h)'s ranks take a card each, over NCCL), printing its launches
+(phase (i): raw K1's and K2's lines too) and the card's line but no
+result line.
 """
 from __future__ import annotations
 
@@ -177,6 +191,16 @@ LOOP_CHECKPOINT = 24
 LOOP_OPTIM = dict(iterations=LOOP_ITERS, start_stat=2, update_from=4,
                   update_interval=12, update_until=LOOP_ITERS,
                   start_crossattn_from=LOOP_CHECKPOINT)
+# the loop's pipeline depths (GSCREAM_PIPELINE) held bit-equal to each
+# other and timed in turns; the last is the counted run's, the default
+LOOP_DEPTHS = (1, 3)
+# phase (h): the loop at mesh (1, 2) at each pipeline depth, bit-equal: an
+# overflow re-run at the first step, a densification at 3, phase 2 from 4
+SHARD_PIPE_OPTIM = dict(iterations=6, start_stat=1, update_from=2,
+                        update_interval=3, update_until=6,
+                        start_crossattn_from=3)
+# phase (j): bench_torch.py's keys and its time limit
+BENCH_TIMEOUT_S = 600
 # phase (g): the spiral's poses, the views scored again on the CPU (VGG16
 # at 1297x840 takes seconds there), and the keys JAX's results.json and
 # per_view.json carry with LPIPS weights and masks
@@ -1937,6 +1961,57 @@ def states_equal(a, b):
     return True, ""
 
 
+def loop_walls(stamps):
+    """(phase-1 and phase-2 wall ms per iteration, all by iteration) from
+    the callbacks' times: an iteration's is the time since the callback
+    before it; phase 2 starts after LOOP_CHECKPOINT."""
+    per_it = {it: (stamps[it] - stamps[it - 1]) * 1e3
+              for it in stamps if it - 1 in stamps}
+    p1 = [t for it, t in per_it.items() if it <= LOOP_CHECKPOINT]
+    p2 = [t for it, t in per_it.items() if it > LOOP_CHECKPOINT + 1]
+    return p1, p2, per_it
+
+
+def sync_calls(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (the
+    synchronizing calls it made, each as the file:line of the innermost
+    frame of this repo that led to it, then the frame that made it where
+    that lies outside the repo, and what ``fn`` returned)."""
+    import traceback
+    import warnings
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    calls = []
+
+    def where(frames):
+        frames = [f for f in frames if f.name != "show"
+                  and not f.filename.endswith("warnings.py")]
+        inside = [f for f in frames
+                  if not os.path.relpath(f.filename, root).startswith("..")]
+        at = [f"{os.path.relpath(f.filename, root)}:{f.lineno}"
+              for f in inside[-1:]]
+        last = frames[-1]
+        if not inside or last is not inside[-1]:
+            at.append(f"{os.path.basename(last.filename)}:{last.lineno} "
+                      f"{last.name}")
+        return " -> ".join(at)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            calls.append(where(traceback.extract_stack()[:-1]))
+    sync()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    return calls, out
+
+
 def loop_phase(dev, cfg, scaffold, cams, targets):
     """Phase (f): ``train_scene`` on the benchmark model (warm-started from
     its anchors, written as a PLY; decoders from the loop's own seeded
@@ -1957,7 +2032,8 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
                                             save_checkpoint)
     from gscream_tpu_torch.train.loop import (capacity_tier,
                                               densify_generator, train_scene)
-    from gscream_tpu_torch.train.step import train_step
+    from gscream_tpu_torch.train.state import StatePool
+    from gscream_tpu_torch.train.step import aux_values, train_step
     t_start = time.perf_counter()
     opt = OptimConfig(**LOOP_OPTIM)
     run = RunConfig(model=ModelConfig(
@@ -2006,16 +2082,18 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
             fn.launches = 0
         sync()
         t0 = time.perf_counter()
-        ts_a, log_a = train_scene(
-            views, 0, points, run, out_dir=os.path.join(tmp, "a"),
-            capacity=start_cap, callback=callback, pretrained_ply=ply,
-            checkpoint_interval=LOOP_CHECKPOINT, device=dev)
+        with environ(GSCREAM_PIPELINE=str(LOOP_DEPTHS[-1])):
+            ts_a, log_a = train_scene(
+                views, 0, points, run, out_dir=os.path.join(tmp, "a"),
+                capacity=start_cap, callback=callback, pretrained_ply=ply,
+                checkpoint_interval=LOOP_CHECKPOINT, device=dev)
         sync()
         run_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
-        log(f"training loop: {LOOP_ITERS} iterations in {run_s:.2f} s "
-            f"(first calls included), starting capacity {start_cap} "
-            f"(view 0 demand {demand}); launches {launches} [{SMI}]")
+        log(f"training loop: {LOOP_ITERS} iterations at pipeline depth "
+            f"{LOOP_DEPTHS[-1]} in {run_s:.2f} s (first calls included), "
+            f"starting capacity {start_cap} (view 0 demand {demand}); "
+            f"launches {launches} [{SMI}]")
 
         # what the run must show
         require(all(math.isfinite(x) for x in log_a.losses),
@@ -2046,16 +2124,47 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
                 f"{loss:.6f}, instances {st['instances']} of capacity "
                 f"{st['capacity']}")
 
-        # wall ms per iteration: between consecutive callbacks (each
-        # iteration's step reads its scalars to the host once)
-        per_it = {it: (stamps[it] - stamps[it - 1]) * 1e3
-                  for it in stamps if it - 1 in stamps}
-        p1 = [t for it, t in per_it.items() if it <= LOOP_CHECKPOINT]
-        p2 = [t for it, t in per_it.items() if it > LOOP_CHECKPOINT + 1]
-        log(f"training loop wall ms per iteration: phase 1 median "
-            f"{np.median(p1):.3f} ({len(p1)} iterations), phase 2 median "
-            f"{np.median(p2):.3f} ({len(p2)} iterations); all "
+        # the same schedule at each depth of LOOP_DEPTHS, in turns after
+        # the counted run: every state tensor, the losses, the steps and
+        # the events equal to the counted run's
+        walls = {}
+        for d in LOOP_DEPTHS + LOOP_DEPTHS[::-1]:
+            st_d = {}
+            with environ(GSCREAM_PIPELINE=str(d)):
+                ts_d, log_d = train_scene(
+                    views, 0, points, run,
+                    out_dir=os.path.join(tmp, f"depth{d}"),
+                    capacity=start_cap, pretrained_ply=ply,
+                    callback=lambda it, ts, aux: st_d.__setitem__(
+                        it, time.perf_counter()),
+                    checkpoint_interval=LOOP_CHECKPOINT, device=dev)
+            same, where = states_equal(ts_a, ts_d)
+            require(same, f"the loop at pipeline depth {d} ends other than "
+                    f"at depth {LOOP_DEPTHS[-1]}: {where}")
+            require(log_d.losses == log_a.losses and log_d.steps ==
+                    log_a.steps and log_d.events == log_a.events,
+                    f"the loop at depth {d}: losses, steps or events differ")
+            walls.setdefault(d, []).append(
+                (loop_walls(st_d), log_d.iter_times))
+        log(f"pipeline depths {LOOP_DEPTHS}: every parameter, moment, "
+            f"statistic, alive, the step counts and the generator "
+            f"bit-equal, the losses, steps and events (overflow re-run "
+            f"at {[e['it'] for e in overflows]}, densifications at "
+            f"{[e['it'] for e in dens]}) equal")
+        # wall ms per iteration: between consecutive callbacks (a commit,
+        # depth iterations after its launch)
+        p1, p2, per_it = loop_walls(stamps)
+        log(f"training loop wall ms per iteration (counted run, depth "
+            f"{LOOP_DEPTHS[-1]}): phase 1 median {np.median(p1):.3f} "
+            f"({len(p1)} iterations), phase 2 median {np.median(p2):.3f} "
+            f"({len(p2)} iterations); all "
             f"{[round(per_it[i], 2) for i in sorted(per_it)]} [{SMI}]")
+        for d, runs in walls.items():
+            for k, ((q1, q2, _), disp) in enumerate(runs):
+                log(f"  depth {d} run {k + 1}: wall ms per iteration, "
+                    f"phase 1 median {np.median(q1):.3f}, phase 2 median "
+                    f"{np.median(q2):.3f}; host ms to launch a step, "
+                    f"median {1e3 * np.median(disp[1:]):.3f} [{SMI}]")
 
         # the resume: restored at LOOP_CHECKPOINT, run to the end
         require(saved.get("it") == LOOP_CHECKPOINT, "no checkpoint kept")
@@ -2093,18 +2202,49 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
             f"load_checkpoint {load_ms:.3f} ms (means of 3, each to a "
             f"sync) [{SMI}]")
 
-    # one phase-2 step on the reference view, under the profiler
+    # the synchronizing calls of one launched step of each phase (the
+    # loop's launch: the snapshot, then train_step), warm
     state = [ts_b]
     cap = max(st["capacity"] for st in log_a.steps)
     box = torch.tensor([0, HEIGHT, 0, WIDTH], dtype=torch.int32, device=dev)
+    pool = StatePool()
+
+    def launched(phase2):
+        def fn():
+            pool.release(pool.snapshot(state[0]))
+            state[0], aux = train_step(
+                state[0], cams[0], *targets[0], box, cfg=cfg, opt=opt,
+                is_ref=True, use_crossattn=phase2, capacity=cap,
+                width=WIDTH, height=HEIGHT, accumulate=True,
+                feat_frozen=phase2)
+            return aux
+        return fn
+    # the first switch of the mode reports one call of its own (PR 11's
+    # chip runs): counted around nothing first, apart from the steps
+    base, _ = sync_calls(lambda: None)
+    log(f"sync debug mode switched on and off around nothing: "
+        f"{len(base)} {base}")
+    for phase2 in (False, True):
+        fn = launched(phase2)
+        fn()
+        calls, aux = sync_calls(fn)
+        vals = aux_values(aux)
+        require(math.isfinite(vals[0]) and vals[2] <= cap,
+                f"the step counted for synchronizing calls: {vals}")
+        log(f"synchronizing calls in one launched phase-{1 + phase2} step "
+            f"(StatePool.snapshot + train_step, sync debug mode 'warn'): "
+            f"{len(calls)} {calls}")
+
+    # one phase-2 step on the reference view, under the profiler
 
     def one_step():
         state[0], aux = train_step(
             state[0], cams[0], *targets[0], box, cfg=cfg, opt=opt,
             is_ref=True, use_crossattn=True, capacity=cap, width=WIDTH,
             height=HEIGHT, accumulate=True, feat_frozen=True)
-        require(bool(aux.packed[4]) and aux.packed[2] <= cap,
-                f"the profiled phase-2 step: {aux.packed.tolist()}")
+        vals = aux_values(aux)
+        require(bool(vals[4]) and vals[2] <= cap,
+                f"the profiled phase-2 step: {vals}")
     kernels, layers, busy_ms, wall_ms = profile_calls(one_step, ("step/",))
     log(f"profile of one phase-2 step (reference view, cross_ok): device "
         f"busy {busy_ms:.3f} ms in {sum(k[1] for k in kernels)} kernel "
@@ -2868,6 +3008,57 @@ def sharded_cli(dev, tmp):
         f"{float(np.max(np.abs(la - lb) / np.abs(lb))):.3e} [{SMI}]")
 
 
+def sharded_pipeline(dev, cfg, scaffold, cams, targets, tmp):
+    """Part 4: ``train_scene`` at mesh (1, 2) in two spawned ranks over
+    the training views, warm-started from the benchmark model's anchors
+    (SHARD_PIPE_OPTIM, from half the first view's demand), at each
+    pipeline depth of LOOP_DEPTHS: the same digest on every rank and
+    depth, the losses, steps and events equal."""
+    from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
+    from gscream_tpu_torch.data.synthetic import SyntheticView
+    from gscream_tpu_torch.model.io import save_anchors_ply
+    from gscream_tpu_torch.parallel import distributed as dist_
+    from gscream_tpu_torch.parallel import workers
+    from gscream_tpu_torch.train.loop import capacity_tier
+    run = RunConfig(model=ModelConfig(
+        feat_dim=cfg.feat_dim, n_offsets=cfg.n_offsets,
+        voxel_size=cfg.voxel_size, anchor_capacity=cfg.capacity),
+        optim=OptimConfig(**SHARD_PIPE_OPTIM), seed=0)
+    points = np.random.default_rng(0).normal(
+        0, 0.6, (N_ANCHORS, 3)).astype(np.float32)   # bench_scene's cloud
+    ply = os.path.join(tmp, "pipeline.ply")
+    save_anchors_ply(ply, scaffold, cfg)
+    views = [SyntheticView(workers.camera_to(cams[i], "cpu"),
+                           *(t.cpu() for t in targets[i][:3]), f"view_{i}")
+             for i in range(len(cams))]
+    cap = capacity_tier(instance_demand(scaffold, cfg, cams[0]) // 2)
+    t0 = time.perf_counter()
+    res = dist_.spawn(workers.pipeline_worker, 2, (1, 2), views, 0, points,
+                      run, os.path.join(tmp, "pipeline"),
+                      dict(capacity=cap, pretrained_ply=ply), LOOP_DEPTHS,
+                      backend=rank_backend(dev), device=dev.type,
+                      timeout_s=600)
+    took = time.perf_counter() - t0
+    digests = {r["digest"] for rank in res for r in rank}
+    require(len(digests) == 1, f"mesh (1, 2) at depths {LOOP_DEPTHS}: "
+            "the ranks or the depths end on other states")
+    first = res[0][0]
+    for d, r in zip(LOOP_DEPTHS, res[0]):
+        require(r["losses"] == first["losses"] and r["steps"] ==
+                first["steps"] and r["events"] == first["events"],
+                f"mesh (1, 2) at depth {d}: losses, steps or events differ")
+    over = [e["it"] for e in first["events"] if e["event"] == "overflow"]
+    require(over[:1] == [1], f"mesh (1, 2): no overflow re-run at the first "
+            f"step: {first['events']}")
+    require(all(math.isfinite(x) for x in first["losses"]),
+            f"mesh (1, 2): a loss is not finite: {first['losses']}")
+    log(f"mesh (1, 2) loop at pipeline depths {LOOP_DEPTHS}: bit-equal "
+        f"(sha256 {first['digest'][:16]}) on both ranks, losses "
+        f"{first['losses']}, events {first['events']}, phase 2 at "
+        f"{[s['it'] for s in first['steps'] if s['use_cross']]}; spawn + "
+        f"runs {took:.1f} s [{SMI}]")
+
+
 def sharded_phase(dev, cams, targets):
     """Phase (h): multi-GPU training over a (data, tiles) mesh on a fresh
     copy of the benchmark model.  Returns each kernel's launches over the
@@ -2879,6 +3070,7 @@ def sharded_phase(dev, cams, targets):
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = sharded_runs(dev, cfg, scaffold, cams, targets, tmp)
         sharded_cli(dev, tmp)
+        sharded_pipeline(dev, cfg, scaffold, cams, targets, tmp)
     log(f"phase (h) took {time.perf_counter() - t_start:.1f} s")
     return launches
 
@@ -3437,6 +3629,82 @@ def modes_phase(dev, cams, targets):
 SMI = ""
 
 
+# ---------------------------------------------------------------------------
+# phase (j): the port's bench
+
+def run_bench(env, label):
+    """``python3 bench_torch.py`` in a subprocess: its JSON line, checked
+    (every key of ``bench.py``'s line, a finite positive value, no
+    overflow), and its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    require(r.returncode == 0, f"bench_torch.py ({label}) exited "
+            f"{r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench_torch.py ({label}) printed "
+            f"{len(lines)} lines: {lines[:4]}")
+    rec = json.loads(lines[0])
+    import bench_torch
+    missing = [k for k in bench_torch.KEYS if k not in rec]
+    require(not missing, f"bench_torch.py ({label}): keys {missing} missing")
+    require(isinstance(rec["value"], float) and math.isfinite(rec["value"])
+            and rec["value"] > 0, f"bench_torch.py ({label}): value "
+            f"{rec['value']}")
+    require(rec["overflow_demand"] <= rec["capacity"], f"bench_torch.py "
+            f"({label}): demand {rec['overflow_demand']} > capacity "
+            f"{rec['capacity']}")
+    return rec, took
+
+
+def bench_phase(dev):
+    """Phase (j): ``bench_torch.py`` in a subprocess, plain and with the
+    ``GSCREAM_TRACE`` hook on (its trace directory must not be empty),
+    then its workload in this process with the launch counters reset
+    just before one timed-loop call and read just after.  Returns each
+    kernel's launches per bench iteration."""
+    import bench_torch
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GSCREAM_TRACE", None)
+    rec, took = run_bench(env, "plain")
+    log(f"bench_torch.py line: {json.dumps(rec)} ({took:.1f} s) [{SMI}]")
+    with tempfile.TemporaryDirectory() as tdir:
+        traced, took_t = run_bench(dict(env, GSCREAM_TRACE=tdir), "traced")
+        files = [os.path.join(d, f) for d, _, fs in os.walk(tdir)
+                 for f in fs]
+        size = sum(os.path.getsize(f) for f in files)
+        require(files and size > 0, "GSCREAM_TRACE wrote no trace")
+        log(f"bench_torch.py with GSCREAM_TRACE: {len(files)} trace "
+            f"file(s), {size} bytes ({[os.path.relpath(f, tdir) for f in files]}"
+            f"); under the profiler value {traced['value']:.6g} rays/s, "
+            f"iter_ms {traced['iter_ms']:.3f} ({took_t:.1f} s) [{SMI}]")
+    w, h = WIDTH, HEIGHT
+    cfg, sc, cam = bench_torch._bench_scene(w, h, N_ANCHORS, 10, 0, dev)
+    cap = bench_torch._capacity(*bench_torch._count_instances(cfg, sc, cam,
+                                                               w, h))
+    grad_fn = bench_torch._build_workload(cfg, sc, cam, w, h, cap)
+    grad_fn()
+    sync()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = grad_fn()
+    sync()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(int(out[2][1]) <= cap, "the bench workload overflowed")
+    for name in DEFAULT_ROUTE if dev.type == "cuda" else ():
+        require(launches[name] == 1, f"kernel {name} launched "
+                f"{launches[name]} times in one bench iteration")
+    log(f"bench iteration launches {launches} (capacity {cap}); phase (j) "
+        f"took {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def build_kernels(parent):
     """Phase (a): the card, the versions, and the parallel nvcc build (the
     parent's K1 and K2 beside the port's when ``parent`` names a tree)."""
@@ -3602,7 +3870,7 @@ def render_phase(dev):
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
                  loop_launches, eval_launches, spiral_launches,
-                 sharded_launches, modes, modes_launches):
+                 sharded_launches, modes, modes_launches, bench_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), raw K1 and K2 from
     phase (i), the others from phase (d)), timed at its view 0 and holding
@@ -3610,8 +3878,8 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
     the training loop's (phase (f)), the render path's, the evaluated test
     split's and the spiral's (phase (g)), the sharded steps' (phase (h),
     summed over the ranks and meshes), the modes' steps' and the raw
-    sharded step's (phase (i)), and, for the kernels the render path
-    runs, its own line."""
+    sharded step's (phase (i)), one bench iteration's (phase (j)), and,
+    for the kernels the render path runs, its own line."""
     out = []
     for name in launch_counters():
         if name in pallas:
@@ -3628,6 +3896,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_spiral"] = spiral_launches[name]
         rec["launches_sharded"] = sharded_launches[name]
         rec["launches_modes"] = modes_launches[name]
+        rec["launches_bench"] = bench_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -3647,8 +3916,8 @@ def main():
                                  "PyTorch/CUDA port")
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
                     "earlier tree: time its K1 and K2 beside the port's")
-    ap.add_argument("--phase", choices=("h", "i"), help="build the "
-                    "kernels and run this phase alone (on a host with "
+    ap.add_argument("--phase", choices=("f", "h", "i", "j"), help="build "
+                    "the kernels and run this phase alone (on a host with "
                     "several cards, phase (h)'s ranks take one card each)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3658,11 +3927,18 @@ def main():
     SMI = smi_line()
     build_kernels(opts.parent)
     dev = torch.device("cuda")
+    if opts.phase == "j":
+        print(json.dumps({"launches_bench": bench_phase(dev)}))
+        print(SMI)
+        return
     if opts.phase:
-        cfg, _ = bench_scene(dev)
+        cfg, scaffold = bench_scene(dev)
         cams = orbit_cameras(dev)
         targets = training_targets(dev, cfg, cams[:N_TRAIN_VIEWS])
-        if opts.phase == "h":
+        if opts.phase == "f":
+            print(json.dumps({"launches_loop": loop_phase(
+                dev, cfg, scaffold, cams, targets)[0]}))
+        elif opts.phase == "h":
             print(json.dumps({"launches_sharded": sharded_phase(
                 dev, cams, targets)}))
         else:
@@ -3680,11 +3956,13 @@ def main():
     eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
     sharded_launches = sharded_phase(dev, cams, targets)
     modes, modes_launches = modes_phase(dev, cams, targets)
+    bench_launches = bench_phase(dev)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
                                   pallas_launches, loop_launches,
                                   eval_launches, spiral_launches,
-                                  sharded_launches, modes, modes_launches)))
+                                  sharded_launches, modes, modes_launches,
+                                  bench_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

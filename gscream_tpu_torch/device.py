@@ -6,6 +6,8 @@ caller asks for the CPU explicitly (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from . import precision  # noqa: F401  (pins fp32 matmuls on import)
@@ -21,3 +23,17 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+_CONSTANTS: Dict = {}
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """A small float32 constant on ``device``, made once: a copy from the
+    host inside a training step would make the host wait for the
+    device."""
+    key = (tuple(values), str(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(values, dtype=torch.float32,
+                                       device=device)
+    return _CONSTANTS[key]

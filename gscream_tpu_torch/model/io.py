@@ -241,7 +241,9 @@ def load_checkpoint(path: str, template):
         scaffold=sc._replace(alive=blob["alive"].to(dev),
                              xyz_max=blob["xyz_max"].to(dev)),
         m=moments(blob["m"]), v=moments(blob["v"]),
-        step=int(blob["step"]), step_c=int(blob["step_c"]),
+        step=int(blob["step"]),
+        step_c=torch.tensor(int(blob["step_c"]), dtype=torch.int32,
+                            device=dev),
         stats=DensifyStats(**{k: t.to(dev)
                               for k, t in blob["stats"].items()}))
 

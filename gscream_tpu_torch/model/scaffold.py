@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import device_constant, resolve_device
 from ..ops.attention import FIELDS as CROSSATTN_FIELDS
 from ..ops.attention import attn_shapes, init_bidirectional_attn
 from ..ops.knn import mean_knn_sq_dist
@@ -280,7 +280,7 @@ def decode(state: ScaffoldState, cam_center: torch.Tensor,
     # dead/coincident anchors would hit ‖0‖ — substitute a unit view there
     degenerate = torch.sum(ob_view * ob_view, dim=1, keepdim=True) < 1e-18
     safe_view = torch.where(
-        degenerate, torch.tensor([0.0, 0.0, 1.0], device=ob_view.device),
+        degenerate, device_constant((0.0, 0.0, 1.0), ob_view.device),
         ob_view)
     ob_dist = torch.linalg.vector_norm(safe_view, dim=1, keepdim=True)
     ob_dir = safe_view / ob_dist

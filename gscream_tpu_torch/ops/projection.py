@@ -98,6 +98,79 @@ def _floor_div(x, d: int):
     return torch.floor(x / d)
 
 
+def _ewa_columns(tx, ty, tz, cov, w2c, focal_x, focal_y, tan_fovx,
+                 tan_fovy):
+    """(a, b, c) of the dilated 2D covariance from view-space columns
+    and the six Σ columns, operation for operation as :func:`preprocess`
+    has always taken them (M = W Σ Wᵀ in the JAX column sum order)."""
+    c00, c01, c02, c11, c12, c22 = cov
+    limx = 1.3 * tan_fovx
+    limy = 1.3 * tan_fovy
+    tx = torch.minimum(torch.maximum(tx / tz, -limx), limx) * tz
+    ty = torch.minimum(torch.maximum(ty / tz, -limy), limy) * tz
+
+    # M = W Σ Wᵀ with W = w2c[:3,:3] scalars, in the JAX sum order
+    W = w2c[:3, :3]
+    cv = ((c00, c01, c02), (c01, c11, c12), (c02, c12, c22))
+    Y = [[sum(W[i, j] * cv[j][k] for j in range(3)) for k in range(3)]
+         for i in range(3)]
+
+    def Ment(i, l):
+        return sum(Y[i][k] * W[l, k] for k in range(3))
+    m00, m01, m02 = Ment(0, 0), Ment(0, 1), Ment(0, 2)
+    m11, m12, m22 = Ment(1, 1), Ment(1, 2), Ment(2, 2)
+
+    inv_z = 1.0 / tz
+    u = focal_x * inv_z
+    v = focal_y * inv_z
+    s = -(focal_x * tx) * inv_z * inv_z
+    t = -(focal_y * ty) * inv_z * inv_z
+    a = u * u * m00 + 2.0 * u * s * m02 + s * s * m22 + COV2D_DILATION
+    b = u * v * m01 + u * t * m02 + v * s * m12 + s * t * m22
+    c = v * v * m11 + 2.0 * v * t * m12 + t * t * m22 + COV2D_DILATION
+    return a, b, c
+
+
+def ewa_cov2d(means3d: torch.Tensor, p_view: torch.Tensor,
+              cov3d: torch.Tensor, w2c: torch.Tensor, focal_x, focal_y,
+              tan_fovx, tan_fovy) -> torch.Tensor:
+    """EWA splatting's 2D covariance, (N,3) = (a, b, c) upper triangle
+    with the +0.3 dilation (JAX ``ewa_cov2d``, projection.py:122;
+    ``computeCov2D``, forward.cu:76-115): the view-space point clamped to
+    the 1.3·tan_fov frustum, cov2D = J W Σ Wᵀ Jᵀ + 0.3·I.  ``cov3d`` is
+    (N,6) [Σ00, Σ01, Σ02, Σ11, Σ12, Σ22]; ``means3d`` is unused, as in
+    JAX."""
+    del means3d
+    a, b, c = _ewa_columns(p_view[:, 0], p_view[:, 1], p_view[:, 2],
+                           tuple(cov3d[:, i] for i in range(6)), w2c,
+                           focal_x, focal_y, tan_fovx, tan_fovy)
+    return torch.stack([a, b, c], dim=-1)
+
+
+def _rect_columns(mean_x, mean_y, r, grid_x: int, grid_y: int, tile_w: int,
+                  tile_h: int):
+    """getRect's (auxiliary.h:45-56) float bounds: x and y of the
+    inclusive start and the exclusive end, clipped to the grid."""
+    return (_floor_div(mean_x - r, tile_w).clamp(0, grid_x),
+            _floor_div(mean_y - r, tile_h).clamp(0, grid_y),
+            _floor_div(mean_x + r + tile_w - 1, tile_w).clamp(0, grid_x),
+            _floor_div(mean_y + r + tile_h - 1, tile_h).clamp(0, grid_y))
+
+
+def tile_rect(mean2d: torch.Tensor, radius: torch.Tensor, width: int,
+              height: int, tile_w: int, tile_h: int):
+    """Per-gaussian tile rectangle, as ``getRect`` (JAX ``tile_rect``,
+    projection.py:161): int32 ``rect_min`` (N,2) inclusive and
+    ``rect_max`` (N,2) exclusive, in (x, y) tile coordinates."""
+    grid_x = -(-width // tile_w)
+    grid_y = -(-height // tile_h)
+    x0, y0, x1, y1 = _rect_columns(mean2d[:, 0], mean2d[:, 1],
+                                   radius.to(mean2d.dtype), grid_x, grid_y,
+                                   tile_w, tile_h)
+    return (torch.stack([x0, y0], -1).to(torch.int32),
+            torch.stack([x1, y1], -1).to(torch.int32))
+
+
 def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                rots: torch.Tensor, w2c: torch.Tensor,
                full_proj: torch.Tensor, width: int, height: int,
@@ -168,30 +241,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     tz = torch.where(in_front, depth, torch.ones_like(depth))
     tx = torch.where(in_front, tview_x, torch.zeros_like(tview_x))
     ty = torch.where(in_front, tview_y, torch.zeros_like(tview_y))
-    limx = 1.3 * tan_fovx
-    limy = 1.3 * tan_fovy
-    tx = torch.minimum(torch.maximum(tx / tz, -limx), limx) * tz
-    ty = torch.minimum(torch.maximum(ty / tz, -limy), limy) * tz
-
-    # M = W Σ Wᵀ with W = w2c[:3,:3] scalars, in the JAX sum order
-    W = w2c[:3, :3]
-    cv = ((c00, c01, c02), (c01, c11, c12), (c02, c12, c22))
-    Y = [[sum(W[i, j] * cv[j][k] for j in range(3)) for k in range(3)]
-         for i in range(3)]
-
-    def Ment(i, l):
-        return sum(Y[i][k] * W[l, k] for k in range(3))
-    m00, m01, m02 = Ment(0, 0), Ment(0, 1), Ment(0, 2)
-    m11, m12, m22 = Ment(1, 1), Ment(1, 2), Ment(2, 2)
-
-    inv_z = 1.0 / tz
-    u = focal_x * inv_z
-    v = focal_y * inv_z
-    s = -(focal_x * tx) * inv_z * inv_z
-    t = -(focal_y * ty) * inv_z * inv_z
-    a = u * u * m00 + 2.0 * u * s * m02 + s * s * m22 + COV2D_DILATION
-    b = u * v * m01 + u * t * m02 + v * s * m12 + s * t * m22
-    c = v * v * m11 + 2.0 * v * t * m12 + t * t * m22 + COV2D_DILATION
+    a, b, c = _ewa_columns(tx, ty, tz, (c00, c01, c02, c11, c12, c22),
+                           w2c, focal_x, focal_y, tan_fovx, tan_fovy)
     det = a * c - b * b
     det_valid = det != 0.0
     inv_det = 1.0 / torch.where(det_valid, det, torch.ones_like(det))
@@ -211,10 +262,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     grid_y = -(-height // tile_h)
     radius_i = radius_f.to(torch.int32)
     r = radius_f
-    ref_rmin_x = _floor_div(mean_x - r, tile_w).clamp(0, grid_x)
-    ref_rmin_y = _floor_div(mean_y - r, tile_h).clamp(0, grid_y)
-    ref_rmax_x = _floor_div(mean_x + r + tile_w - 1, tile_w).clamp(0, grid_x)
-    ref_rmax_y = _floor_div(mean_y + r + tile_h - 1, tile_h).clamp(0, grid_y)
+    ref_rmin_x, ref_rmin_y, ref_rmax_x, ref_rmax_y = _rect_columns(
+        mean_x, mean_y, r, grid_x, grid_y, tile_w, tile_h)
     area = (ref_rmax_x - ref_rmin_x) * (ref_rmax_y - ref_rmin_y)
     visible = in_front & det_valid & (area > 0)
     if active_mask is not None:

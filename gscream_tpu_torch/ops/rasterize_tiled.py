@@ -653,13 +653,21 @@ def scatter_reduce_sums(rows: torch.Tensor,
 
 def per_gaussian_sums(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
     """K2's (capacity, 16) rows in sorted order → (N, 16) sums over each
-    gaussian's instances (rasterize_tiled.py:1224-1237): K4, the column
-    scatter and K3 under ``GSCREAM_REORDER=cm``, the row scatter and K7
-    otherwise, and :func:`scatter_reduce_sums` under
-    ``GSCREAM_SCATTER_REDUCE``."""
+    gaussian's instances, the whole frame's reduction (rasterize_tiled.py:
+    1224-1237): :func:`scatter_reduce_sums` under
+    ``GSCREAM_SCATTER_REDUCE``, else :func:`segment_sums`."""
     if os.environ.get("GSCREAM_SCATTER_REDUCE"):
         with record_function("raster_bwd/scatter_reduce"):
             return scatter_reduce_sums(rows, binning)
+    return segment_sums(rows, binning)
+
+
+def segment_sums(rows: torch.Tensor, binning: Binning) -> torch.Tensor:
+    """K2's rows → per-gaussian sums through the ``GSCREAM_REORDER``
+    selector alone: K4, the column scatter and K3 under ``cm``, the row
+    scatter and K7 otherwise.  The band backward reduces here whatever
+    ``GSCREAM_SCATTER_REDUCE`` says, as JAX's ``_band_bwd_at`` does
+    (parallel/shard.py:165-174)."""
     if _reorder_mode() == "cm":
         with record_function("raster_bwd/K4 unpack + reorder"):
             ge = emission_columns(rows, binning)

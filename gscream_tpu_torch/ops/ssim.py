@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import device_constant
+
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
 
@@ -77,9 +79,10 @@ def _blur_reflect(img: torch.Tensor, k1d: torch.Tensor) -> torch.Tensor:
 
 def _ssim_map(img1, img2, window_size: int = 11, sigma: float = 1.5,
               padding: str = "zero", c1: float = C1, c2: float = C2):
-    # the window follows the image's dtype, so a bfloat16 map stays one
-    k = torch.as_tensor(_gaussian_kernel(window_size, sigma),
-                        device=img1.device, dtype=img1.dtype)
+    # the window follows the image's dtype, so a bfloat16 map stays one;
+    # made once per device (a host copy inside a step would wait for it)
+    k = device_constant(tuple(_gaussian_kernel(window_size, sigma)),
+                        img1.device).to(img1.dtype)
     blur = functools.partial(_blur_reflect if padding == "reflect"
                              else _blur, k1d=k)
     mu1 = blur(img1)

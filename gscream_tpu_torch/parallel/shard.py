@@ -30,7 +30,6 @@ gradients are then summed over the mesh.
 from __future__ import annotations
 
 import hashlib
-import math
 from typing import List, NamedTuple
 
 import torch
@@ -38,14 +37,15 @@ from torch.profiler import record_function
 
 from ..cameras import Camera
 from ..config import OptimConfig
+from ..device import device_constant
 from ..model.densify import accumulate_stats
 from ..model.scaffold import ScaffoldConfig, ScaffoldState
 from ..ops import rasterize_tiled as rt
 from ..ops.binning import Binning, overflow_demand
 from ..ops.rasterize_tiled import TILE_H, TILE_W, TiledOut
-from ..train.state import (TrainState, apply_adam, group_of, lr_tree,
-                           named_params)
-from ..train.step import (loss_and_grads, pack_aux, phase1_masks,
+from ..train.state import (TrainState, apply_adam, device_bias, group_of,
+                           lr_tree, named_params)
+from ..train.step import (gate_stats, loss_and_grads, pack_aux, phase1_masks,
                           phase2_masks, prefilter, sample_cross_tokens,
                           splat_view, token_priorities)
 from .band_loss import band_loss_terms
@@ -148,7 +148,7 @@ class _RasterizeBand(torch.autograd.Function):
             grad_rows = rt.tile_backward(inst, pix, ts, tc, n_local,
                                          ctx.raw, gx, band * n_local)
         # K2 zeroed the slots outside the band: the sums are its partials
-        pg = rt.per_gaussian_sums(grad_rows, ctx.binning)
+        pg = rt.segment_sums(grad_rows, ctx.binning)
         with record_function("raster_bwd/chain"):
             grads = rt.pergauss_chain(pg, mean2d, conic, op)
             d_bg = (t_img[None] * gc).sum(dim=(1, 2))
@@ -334,10 +334,11 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
     * one masked Adam, and the cross-attention's own when any view ran it.
 
     The overflow demand is the max over every rank and the step's
-    scalars are gathered before anything is written, so every rank
-    takes the same decision: above ``capacity`` (or a loss that is not
-    finite) no rank writes, the generator is handed back, and the caller
-    re-runs the step on all ranks.  For B = 1 and any band count the step
+    scalars are gathered before anything is written, so every rank's
+    write gate ``ok`` is the same device flag, read by no rank: above
+    ``capacity`` (or a loss that is not finite) no rank writes, and the
+    caller re-runs the step on all ranks from the state it kept, as
+    :func:`~..train.step.train_step`'s does.  For B = 1 and any band count the step
     is ``train_step``'s up to float32 reassociation."""
     B = mesh.data
     C, k = cfg.capacity, cfg.n_offsets
@@ -357,14 +358,14 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
         gate = torch.ones(B, device=dev)
         if use_crossattn:
             with record_function("step/tokens"), torch.no_grad():
-                gen_state = ts.generator.get_state()
                 n_tok = min(opt.crossattn_max_tokens, C)
                 toks = [sample_cross_tokens(
                     token_priorities(ts, C), pre.mean2d[:, 0],
                     pre.mean2d[:, 1], pre.radius > 0, sc.alive,
                     batch.mask[j][0], batch.cross_box[j], width, height,
                     n_tok) for j, pre in enumerate(pres)]
-                act = torch.tensor(batch.cross_enable, device=dev)
+                act = torch.tensor(batch.cross_enable).to(
+                    dev, non_blocking=True)
                 ok_act = torch.stack([t.ok for t in toks]) & act
                 gate = torch.where(act, ok_act.to(torch.float32), 1.0)
                 cross = toks[d]._replace(ok=ok_act[d])
@@ -383,54 +384,54 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
                 g.dec.active.sum().to(torch.float32)]), mesh.data_group)
             any_cross = (ok_act.any() if use_crossattn else
                          torch.zeros((), dtype=torch.bool, device=dev))
-            aux = pack_aux(ordered_sum([v[0] for v in views]) / B,
-                           ordered_sum([v[1] for v in views]) / B, demand,
-                           views[0][2], any_cross)
-        loss, _, demand_h, _, cross_h = aux.packed.tolist()
-        if demand_h > capacity or not math.isfinite(loss):
-            if use_crossattn:
-                ts.generator.set_state(gen_state)
-            return ts, aux
-
-        with torch.no_grad():
+            loss = ordered_sum([v[0] for v in views]) / B
+            aux = pack_aux(loss, ordered_sum([v[1] for v in views]) / B,
+                           demand, views[0][2], any_cross)
+            # the write gate, the same on every rank (gathered scalars)
+            ok = (demand <= capacity) & torch.isfinite(loss)
             grads, screen = _mesh_sum(g.grads, g.screen, mesh)
         stats = ts.stats
         if accumulate:
             with torch.no_grad():
-                ndc = screen * torch.tensor([0.5 * width, 0.5 * height],
-                                            device=dev)
+                ndc = screen * device_constant((0.5 * width, 0.5 * height),
+                                               dev)
                 grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(
                     C, k) * gsum
                 valid = (g.dec.active & (g.splats.radius > 0)).reshape(C, k)
                 parts = all_gather(torch.stack([
                     g.dec.neural_opacity.detach(), grad_norm,
                     valid.to(torch.float32)]), mesh.data_group)
+                new = stats
                 for v, (nop, gn, gv) in enumerate(parts):
                     on = gate[v] > 0
-                    stats = accumulate_stats(
-                        stats, nop, gn, (gv > 0) & on,
+                    new = accumulate_stats(
+                        new, nop, gn, (gv > 0) & on,
                         (pres[v].radius > 0) & sc.alive & on)
+                stats = gate_stats(ok, new, stats)
 
         # a step gated off in every view changes no main group
-        upd_ok = bool(cross_h) or not all(batch.cross_enable)
-        masks = (phase2_masks(upd_ok) if use_crossattn
-                 else phase1_masks(feat_frozen))
+        upd_ok = ok if not all(batch.cross_enable) else ok & any_cross
         lrs = lr_tree(step1, opt, spatial_lr_scale)
         params = named_params(sc)
         step_c1 = ts.step_c
         with record_function("step/adam"), torch.no_grad():
-            apply_adam(params, grads, ts.m, ts.v, lrs, step1, masks)
             if use_crossattn:
+                apply_adam(params, grads, ts.m, ts.v, lrs, step1,
+                           phase2_masks(upd_ok))
                 feats = all_gather(g.feat, mesh.data_group)
                 p = sc.params
-                p.feat.copy_(feats[0] if B == 1 else p.feat + ordered_sum(
-                    [f - p.feat for f in feats]))
-                if cross_h:
-                    step_c1 = ts.step_c + 1
-                    ca = {n: t for n, t in params.items()
-                          if group_of(n) == "mlps/crossattn"}
-                    apply_adam(ca, grads, ts.m, ts.v, lrs, max(step_c1, 1),
-                               {"mlps/crossattn": True})
+                torch.where(ok, feats[0] if B == 1 else p.feat + ordered_sum(
+                    [f - p.feat for f in feats]), p.feat, out=p.feat)
+                upd_c = ok & any_cross
+                step_c1 = ts.step_c + upd_c.to(torch.int32)
+                ca = {n: t for n, t in params.items()
+                      if group_of(n) == "mlps/crossattn"}
+                apply_adam(ca, grads, ts.m, ts.v, lrs,
+                           device_bias(torch.clamp_min(step_c1, 1), step1),
+                           {"mlps/crossattn": upd_c})
+            else:
+                apply_adam(params, grads, ts.m, ts.v, lrs, step1,
+                           phase1_masks(feat_frozen), ok)
         return ts._replace(step=step1, step_c=step_c1, stats=stats), aux
 
     return step
@@ -453,7 +454,7 @@ def state_digest(ts: TrainState) -> str:
         add(torch.as_tensor(t))
     add(ts.scaffold.alive.to(torch.uint8))
     add(ts.scaffold.xyz_max)
-    h.update(f"{ts.step} {ts.step_c}".encode())
+    h.update(f"{ts.step} {int(ts.step_c)}".encode())
     add(ts.generator.get_state())
     return h.hexdigest()
 

@@ -20,6 +20,7 @@ import torch
 from ..cameras import Camera
 from ..model.scaffold import ScaffoldConfig, init_scaffold
 from ..train.state import TrainState, init_train_state, named_params
+from ..train.step import aux_values
 from .distributed import all_gather
 from .mesh import make_mesh
 from .shard import (ViewBatch, check_replicas, make_sharded_loss,
@@ -57,7 +58,7 @@ def host_state(ts: TrainState) -> Dict:
         return {k: t.detach().to("cpu", copy=True) for k, t in d.items()}
     return {"params": host(named_params(ts.scaffold)), "m": host(ts.m),
             "v": host(ts.v), "stats": host(ts.stats._asdict()),
-            "step": ts.step, "step_c": ts.step_c}
+            "step": ts.step, "step_c": int(ts.step_c)}
 
 
 def loss_worker(rank: int, world: int, device, cfg, opt, capacity: int,
@@ -102,7 +103,7 @@ def steps_worker(rank: int, world: int, device, shape: Sequence[int], cfg,
         ts, aux = step(ts, batch, **flags)
         sync(device)
         wall.append(1e3 * (time.perf_counter() - t0))
-        packed.append(aux.packed)
+        packed.append(torch.tensor(aux_values(aux)))
         if len(states) < keep_states:
             states.append(host_state(ts))
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -148,6 +149,29 @@ def train_scene_worker(rank: int, world: int, device, shape: Sequence[int],
     return {"losses": log.losses, "steps": log.steps, "events": log.events,
             "iter_times": log.iter_times, "state": host_state(ts),
             "digest": check_replicas(ts, mesh)}
+
+
+def pipeline_worker(rank: int, world: int, device, shape: Sequence[int],
+                    views, ref_index: int, points, run, out_dir: str,
+                    kwargs: Dict, depths: Sequence[int]):
+    """:func:`train_scene_worker` once per pipeline depth of ``depths``
+    (``GSCREAM_PIPELINE`` set for each run, restored after): a list of
+    its results, one per depth, in order."""
+    import os
+    saved = os.environ.get("GSCREAM_PIPELINE")
+    out = []
+    try:
+        for depth in depths:
+            os.environ["GSCREAM_PIPELINE"] = str(depth)
+            out.append(train_scene_worker(
+                rank, world, device, shape, views, ref_index, points, run,
+                os.path.join(out_dir, f"depth{depth}"), kwargs))
+    finally:
+        if saved is None:
+            os.environ.pop("GSCREAM_PIPELINE", None)
+        else:
+            os.environ["GSCREAM_PIPELINE"] = saved
+    return out
 
 
 def sync(device) -> None:

@@ -14,11 +14,23 @@ densification's keep draws come from a generator seeded with ``(seed + 2,
 it)``; the phase-2 token draws from the state's generator, which the
 checkpoint carries.
 
-The loop runs one step at a time (the JAX loop's pipeline depth 1, the
-reference order).  A step whose instance demand exceeds the capacity
-tier writes nothing (``train.step``), so the loop re-runs it at a raised
-tier from the very state it started from: no step trains on a truncated
-instance list.
+The loop keeps ``GSCREAM_PIPELINE`` steps in flight (default 3, at
+least 1; JAX loop.py:482-516): each iteration launches its step, which
+reads nothing to the host, and the oldest launched step is resolved
+(its five scalars read) and committed once more than that many wait.
+A step whose instance demand exceeds its capacity tier writes nothing
+(``train.step``); resolving it, the loop raises the tier, re-runs it
+from the state it started from and re-launches the steps queued behind
+it from the corrected state, so no step trains on a truncated instance
+list and every depth ends with the states of depth 1.  The pipeline
+drains before each densification, before each checkpoint and at the
+last iteration.  The steps update the parameters and moments in place,
+so the state before each step is kept by a snapshot taken at its launch
+(``train.state.StatePool``): the re-run starts from it, and the commit
+of step k hands the callback, the log and the non-finite dump the state
+after step k (the snapshot taken before step k+1, or the live state
+when no step is queued behind it), not the live tensors that later
+steps have already been enqueued to change.
 """
 from __future__ import annotations
 
@@ -39,8 +51,8 @@ from ..model.scaffold import ScaffoldConfig, init_scaffold, n_alive
 from ..precision import ensure_fp32_matmuls
 from ..parallel.shard import (check_replicas, make_sharded_train_step,
                               sharded_view_batch)
-from .state import init_train_state
-from .step import train_step
+from .state import StatePool, init_train_state
+from .step import aux_values, train_step
 
 
 def capacity_tier(n: int) -> int:
@@ -342,39 +354,49 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                     use_cross=any(s_["use_cross"] for s_ in slots))
 
     sharded_steps: Dict[int, Callable] = {}
+    pool = StatePool()
 
-    def launch(rec: Dict, cap: int):
+    def enqueue(rec: Dict, state):
+        """Enqueue ``rec``'s step on ``state`` at the current tier."""
+        t0 = time.time()
         if mesh is None:
             v = dev_views[rec["vi"]]
-            return train_step(
-                ts, v["camera"], v["image"], v["mask"], v["depth"],
+            rec["ts_new"], rec["aux"] = train_step(
+                state, v["camera"], v["image"], v["mask"], v["depth"],
                 rec["fg_box"], rec["cross_box"], cfg=cfg, opt=opt,
                 is_ref=v["is_ref"], use_crossattn=rec["use_cross"],
                 capacity=cap, width=w, height=h,
                 accumulate=rec["accumulate"], white_bg=m.white_background,
                 spatial_lr_scale=spatial_lr_scale,
                 feat_frozen=rec["feat_frozen"])
-        if cap not in sharded_steps:
-            sharded_steps[cap] = make_sharded_train_step(
-                mesh, cfg, opt, cap, w, h, white_bg=m.white_background,
-                spatial_lr_scale=spatial_lr_scale)
-        return sharded_steps[cap](
-            ts, rec["batch"], use_crossattn=rec["use_cross"],
-            feat_frozen=rec["feat_frozen"], accumulate=rec["accumulate"])
+        else:
+            if cap not in sharded_steps:
+                sharded_steps[cap] = make_sharded_train_step(
+                    mesh, cfg, opt, cap, w, h, white_bg=m.white_background,
+                    spatial_lr_scale=spatial_lr_scale)
+            rec["ts_new"], rec["aux"] = sharded_steps[cap](
+                state, rec["batch"], use_crossattn=rec["use_cross"],
+                feat_frozen=rec["feat_frozen"],
+                accumulate=rec["accumulate"])
+        rec["dispatch_s"] = time.time() - t0
+        rec["capacity"] = cap
+        return rec
 
-    def run_step(rec: Dict) -> Dict:
-        """The step of ``rec``, re-run at a raised capacity tier from the
-        same state while its instance demand overflows (the reference's
-        resize-and-rerun contract, rasterize_points.cu:27-33)."""
+    def launch(rec: Dict, state) -> Dict:
+        """``rec``'s step on ``state``, the chain's tip (the live
+        tensors), after a snapshot of that state (JAX loop.py:387)."""
+        rec["ts_prev"] = pool.snapshot(state)
+        return enqueue(rec, state)
+
+    def resolve(rec: Dict) -> Dict:
+        """The step's scalars, read once; while its instance demand
+        overflows its tier, the tier is raised and the step re-run from
+        its snapshot (JAX loop.py:413; the reference's resize-and-rerun
+        contract, rasterize_points.cu:27-33)."""
         nonlocal cap
-        while True:
-            t0 = time.time()
-            ts_new, aux = launch(rec, cap)
-            rec["dispatch_s"] = time.time() - t0
-            rec["vals"] = aux.packed.tolist()
-            n_inst = int(rec["vals"][2])
-            if n_inst <= cap:
-                break
+        vals = aux_values(rec["aux"])
+        n_inst = int(vals[2])
+        while n_inst > rec["capacity"]:
             # 25% headroom above the observed count: densification keeps
             # emission growing between tier checks
             new_cap = max(capacity_tier(n_inst + n_inst // 4),
@@ -386,13 +408,17 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                                    demand=n_inst, capacity=cap,
                                    new_capacity=new_cap))
             cap = new_cap
-        rec.update(ts_prev=ts, ts_new=ts_new, aux=aux, n_inst=n_inst,
-                   capacity=cap)
+            enqueue(rec, pool.restore(rec["ts_prev"], rec["ts_new"]))
+            vals = aux_values(rec["aux"])
+            n_inst = int(vals[2])
+        rec.update(vals=vals, n_inst=n_inst)
         return rec
 
-    def commit(rec: Dict):
-        it, aux = rec["it"], rec["aux"]
-        loss = float(rec["vals"][0])
+    def commit(rec: Dict, after):
+        """Log step ``rec`` and hand ``after``, the state after it, to the
+        callback (JAX loop.py:442)."""
+        it, aux, vals = rec["it"], rec["aux"], rec["vals"]
+        loss = float(vals[0])
         if not np.isfinite(loss):
             if not main_rank:
                 raise NonFiniteLossError(
@@ -402,28 +428,27 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
         log.iter_times.append(rec["dispatch_s"])
         log.steps.append(dict(
             it=it, view=rec["vi"], is_ref=dev_views[rec["vi"]]["is_ref"],
-            use_cross=rec["use_cross"], cross_ok=bool(rec["vals"][4]),
+            use_cross=rec["use_cross"], cross_ok=bool(vals[4]),
             instances=rec["n_inst"], capacity=rec["capacity"],
             views=rec.get("vis", [rec["vi"]])))
-        ts_new = rec["ts_new"]
         if not main_rank:
-            return ts_new
+            return after
         if it % 100 == 0 or it == iters:
-            anchors = int(n_alive(ts_new.scaffold))
+            anchors = int(n_alive(after.scaffold))
             logger.info(
                 "iter %d/%d loss %.5f anchors %d instances %d "
                 "(%.1f it/s)", it, iters, loss, anchors, rec["n_inst"],
                 (it - start_it + 1) / max(time.time() - t_start, 1e-9))
-            mlog.log(it, {"loss": loss, "l1": float(rec["vals"][1]),
+            mlog.log(it, {"loss": loss, "l1": float(vals[1]),
                           "iter_time": rec["dispatch_s"],
                           "total_points": anchors,
                           "instances": rec["n_inst"]})
         if callback is not None:
             if callback_wants_mlog:
-                callback(it, ts_new, aux, mlog)
+                callback(it, after, aux, mlog)
             else:
-                callback(it, ts_new, aux)
-        return ts_new
+                callback(it, after, aux)
+        return after
 
     def save_ckpt(it: int):
         from ..model.io import save_checkpoint
@@ -433,13 +458,44 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
             json.dump({"iteration": it, "capacity": cap}, f)
         logger.info("checkpoint saved at iter %d -> %s", it, path)
 
+    # pipeline depth: launched steps kept unresolved (JAX loop.py:482)
+    depth = max(int(os.environ.get("GSCREAM_PIPELINE", "3")), 1)
+    pending: List[Dict] = []
+
+    def drain_one():
+        nonlocal ts
+        rec = pending.pop(0)
+        first = rec["ts_new"]
+        resolve(rec)
+        if rec["ts_new"] is not first:
+            # re-run at a higher tier: the queued successors ran from a
+            # discarded state — re-launch the chain in order from the
+            # corrected one
+            chain = rec["ts_new"]
+            for r in pending:
+                pool.release(r["ts_prev"])
+                chain = launch(r, chain)["ts_new"]
+        ts = commit(rec, pending[0]["ts_prev"] if pending else rec["ts_new"])
+        pool.release(rec["ts_prev"])
+
+    def drain_all():
+        while pending:
+            drain_one()
+
     for it in range(start_it, iters + 1):
-        ts = commit(run_step(prepare(it)))
+        pending.append(launch(prepare(it),
+                              pending[-1]["ts_new"] if pending else ts))
+        while len(pending) > depth:
+            drain_one()
         # densification boundary (train.py:599-606; strictly below
         # update_until — the reference nests adjust_anchor under
-        # ``iteration < opt.update_until``)
-        if (opt.update_from < it < opt.update_until
-                and it % opt.update_interval == 0):
+        # ``iteration < opt.update_until``): drained, so that it sees the
+        # committed state
+        densify_now = (opt.update_from < it < opt.update_until
+                       and it % opt.update_interval == 0)
+        if densify_now or it == iters:
+            drain_all()
+        if densify_now:
             before = int(ts.scaffold.alive.sum())
             sc, stats, m_, v_ = adjust_anchors(
                 ts.scaffold, ts.stats, ts.m, ts.v,
@@ -454,9 +510,10 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 alive_after=int(sc.alive.sum()),
                 grow_overflow=int(stats.grow_overflow)))
         # periodic autosave at a committed iteration boundary
-        if checkpoint_interval and it % checkpoint_interval == 0 \
-                and main_rank:
-            save_ckpt(it)
+        if checkpoint_interval and it % checkpoint_interval == 0:
+            drain_all()
+            if main_rank:
+                save_ckpt(it)
     if checkpoint_interval and iters % checkpoint_interval != 0 \
             and iters >= start_it and main_rank:
         save_ckpt(iters)

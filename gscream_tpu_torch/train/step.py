@@ -24,16 +24,21 @@ projected means, and its gradient read back (the reference's
 gaussian_renderer/__init__.py:124-128).
 
 The JAX step is a pure function, and its loop re-runs an overflowed step
-from the state it kept.  This one updates in place, so it reads the
-step's five scalars (``StepAux.packed``) to the host once, after the
-backward and before anything is written, and writes nothing when the
-instance demand exceeds ``capacity`` (or the loss is not finite): the
-state it returns is then the state it was given, token generator
-included, and the caller re-runs the step at a larger capacity.
+from the state it kept.  This one updates in place, and it reads nothing
+to the host: it enqueues the whole step (a launch) and gates its writes
+on the device.  Where the instance demand exceeds ``capacity`` or the
+loss is not finite, the flag ``ok`` is False and the step changes no
+parameter, moment, statistic or ``step_c``; the caller sees the step's
+five scalars (``StepAux.packed``, copied to host memory without
+blocking) when it reads them with :func:`aux_values`, and re-runs the
+step at a larger capacity from the state it kept.  The host-side
+``step`` count advances at the launch, and a phase-2 step's token draws
+advance the generator at the launch too (its state is host data): the
+loop puts both back from its snapshot of the state before the step
+(``train.state.StatePool``) when it re-runs one.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -41,6 +46,7 @@ from torch.profiler import record_function
 
 from ..cameras import Camera
 from ..config import OptimConfig
+from ..device import device_constant
 from ..model.densify import accumulate_stats
 from ..model.scaffold import Decoded, ScaffoldConfig, ScaffoldState, decode
 from ..ops import losses as L
@@ -50,7 +56,8 @@ from ..ops.projection import Splats, preprocess
 from ..ops.rasterize_tiled import (TILE_H, TILE_W, build_binning,
                                    rasterize_tiled)
 from ..ops.ssim import ssim, ssim_masked
-from .state import TrainState, apply_adam, group_of, lr_tree, named_params
+from .state import (TrainState, apply_adam, device_bias, group_of, lr_tree,
+                    named_params)
 
 
 class StepAux(NamedTuple):
@@ -60,16 +67,39 @@ class StepAux(NamedTuple):
     n_active: torch.Tensor
     cross_ok: torch.Tensor
     # (5,) float32 [loss, l1, num_instances, n_active, cross_ok] on the
-    # host: the step's one device-to-host read (counts exact below 2^24)
+    # step's device (counts exact below 2^24)
     packed: torch.Tensor = None
+    # its copy in (pinned) host memory, and on the card the CUDA event
+    # recorded after the copy; read both through aux_values
+    host: torch.Tensor = None
+    ready: Optional[object] = None
 
 
 def pack_aux(loss, l1, num_instances, n_active, cross_ok) -> StepAux:
+    """The step's five scalars stacked on the device, and on the card a
+    non-blocking copy of them into pinned host memory with an event
+    after it: nothing here waits for the device."""
     f = torch.float32
     packed = torch.stack([loss.to(f), l1.to(f), num_instances.to(f),
-                          n_active.to(f), cross_ok.to(f)]).cpu()
+                          n_active.to(f), cross_ok.to(f)])
+    host, ready = packed, None
+    if packed.is_cuda:
+        host = torch.empty(packed.shape, dtype=f, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
     return StepAux(loss=loss, l1=l1, num_instances=num_instances,
-                   n_active=n_active, cross_ok=cross_ok, packed=packed)
+                   n_active=n_active, cross_ok=cross_ok, packed=packed,
+                   host=host, ready=ready)
+
+
+def aux_values(aux: StepAux) -> list:
+    """``[loss, l1, num_instances, n_active, cross_ok]`` as Python floats:
+    the step's one device-to-host read, which waits for the step's copy
+    (the loop's ``resolve``)."""
+    if aux.ready is not None:
+        aux.ready.synchronize()
+    return aux.host.tolist()
 
 
 class CrossTokens(NamedTuple):
@@ -152,7 +182,7 @@ def crossattn_update(ca, feat, tok: CrossTokens, ema: float, is_ref: bool,
     fg_out, bg_out = bidirectional_attn(ca, fg_tok, bg_tok, heads, dim_head,
                                         mask=tok.fg_valid,
                                         context_mask=tok.bg_valid)
-    drop = torch.tensor(C, dtype=torch.int64, device=base.device)
+    drop = torch.full((), C, dtype=torch.int64, device=base.device)
     new_feat = torch.cat([base, base.new_zeros((1, base.shape[1]))])
     if is_ref:       # fg written only under the reference view (:576-579)
         fg_mix = ema * fg_out + (1 - ema) * fg_tok
@@ -264,13 +294,14 @@ def phase1_masks(feat_frozen: bool):
     }
 
 
-def phase2_masks(cross_ok: bool):
+def phase2_masks(cross_ok):
     """Which groups the main Adam updates in phase 2 (step.py:292-307):
     a step whose token sampling degenerated (``cross_ok`` False) is
     skipped whole by the reference (train.py:519-523), so every group is
     masked on it; the anchor features belong to the cross-attention (the
-    EMA write) and the cross-attention to its own Adam."""
-    ok = bool(cross_ok)
+    EMA write) and the cross-attention to its own Adam.  ``cross_ok`` is
+    a bool or a () bool device tensor (JAX's traced mask)."""
+    ok = cross_ok if isinstance(cross_ok, torch.Tensor) else bool(cross_ok)
     return {
         "params/anchor": ok, "params/offset": ok, "params/feat": False,
         "params/scaling": ok, "params/rotation": False,
@@ -303,11 +334,13 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                height: int, accumulate: bool, white_bg: bool = False,
                spatial_lr_scale: float = 1.0, feat_frozen: bool = False,
                precise_sort: bool = True):
-    """One optimization iteration.  Returns (new_state, StepAux); the
-    parameters and moments are updated in place, so ``ts`` itself holds
-    the new values too — except when ``aux.packed`` shows an instance
-    demand above ``capacity`` or a loss that is not finite: then nothing
-    is written (module docstring) and ``ts`` comes back as it was.
+    """Launch one optimization iteration.  Returns (new_state, StepAux);
+    the parameters and moments are updated in place, so ``ts`` itself
+    holds the new values too — except where the step's device flag
+    ``ok`` is False (an instance demand above ``capacity`` or a loss that
+    is not finite): then no tensor of the state is written (module
+    docstring).  Nothing is read to the host; ``aux_values(aux)`` reads
+    the scalars.
 
     gt_image (3,H,W) · gt_mask (1,H,W) · midas_depth (1,H,W) ·
     fg_box_mask (H,W) random box for the ref-view fg depth term ·
@@ -332,9 +365,6 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         with record_function("step/tokens"), torch.no_grad():
             if cross_box is None:
                 cross_box = torch.zeros(4, dtype=torch.int32, device=dev)
-            # a step that writes nothing hands the generator back as it
-            # found it, so that its re-run draws the same tokens
-            gen_state = ts.generator.get_state()
             n_tok = min(opt.crossattn_max_tokens, C)
             cross = sample_cross_tokens(
                 token_priorities(ts, C), pre.mean2d[:, 0], pre.mean2d[:, 1],
@@ -350,63 +380,66 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                        precise_sort=precise_sort)
 
     with torch.no_grad():
-        aux = pack_aux(g.loss.detach(), g.l1.detach(),
-                       overflow_demand(g.binning),
-                       torch.sum(g.dec.active.to(torch.int32)),
-                       cross.ok if cross is not None else
-                       torch.zeros((), dtype=torch.bool, device=dev))
-    loss, _, demand, _, cross_ok = aux.packed.tolist()
-    if demand > capacity or not math.isfinite(loss):
-        # the instance list was truncated (or the loss is garbage): write
-        # nothing; the caller re-runs at a larger capacity (or stops)
-        if cross is not None:
-            ts.generator.set_state(gen_state)
-        return ts, aux
+        demand = overflow_demand(g.binning)
+        cross_ok = (cross.ok if cross is not None else
+                    torch.zeros((), dtype=torch.bool, device=dev))
+        aux = pack_aux(g.loss.detach(), g.l1.detach(), demand,
+                       torch.sum(g.dec.active.to(torch.int32)), cross_ok)
+        # the write gate: a truncated instance list (the caller re-runs at
+        # a larger capacity) or a garbage loss (the caller stops)
+        ok = (demand <= capacity) & torch.isfinite(g.loss.detach())
 
     # --- densification stats (training_statis, train.py:599) ------------
     stats = ts.stats
     if accumulate:
         with torch.no_grad():
             # screen grads in the reference's NDC units (backward.cu:592)
-            ndc = g.screen * torch.tensor([0.5 * width, 0.5 * height],
-                                          device=dev)
+            ndc = g.screen * device_constant((0.5 * width, 0.5 * height),
+                                             dev)
             grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(C, k)
             gauss_valid = (g.dec.active
                            & (g.splats.radius > 0)).reshape(C, k)
-            stats = accumulate_stats(stats, g.dec.neural_opacity.detach(),
-                                     grad_norm, gauss_valid, anchor_visible)
+            stats = gate_stats(ok, accumulate_stats(
+                stats, g.dec.neural_opacity.detach(), grad_norm,
+                gauss_valid, anchor_visible), stats)
 
     # --- masked Adam, in place ------------------------------------------
-    # ``cross_ok`` is a device value in JAX, where it gates the groups
-    # with ``where``; here it came to the host in ``aux.packed`` and
-    # gates them as Python flags.  A step with cross_ok False changes no
-    # parameter and no moment (and still advances ``step``).
-    masks = phase2_masks(cross_ok) if use_crossattn else phase1_masks(
-        feat_frozen)
+    # a step with cross_ok False changes no parameter and no moment (and
+    # still advances ``step``), as JAX's ``where`` masks gate it
+    upd = ok & cross_ok
     lrs = lr_tree(step1, opt, spatial_lr_scale)
     params = named_params(scaffold)
     step_c1 = ts.step_c
     with record_function("step/adam"):
-        apply_adam(params, g.grads, ts.m, ts.v, lrs, step1, masks)
         if use_crossattn:
+            apply_adam(params, g.grads, ts.m, ts.v, lrs, step1,
+                       phase2_masks(upd))
             # JAX's masked Adam returns a masked leaf's passed-in value,
             # and the value it is passed for params/feat is
             # stop_gradient(feat_used) (step.py:317-318): the EMA-mixed
             # features are written back into the state.  The in-place
             # Adam skips masked groups, so the write is made here.
             with torch.no_grad():
-                p.feat.copy_(g.feat)
-            if cross_ok:
-                # the cross-attention's own Adam (optimizer_c,
-                # train.py:614-616): its own step count, run only on
-                # steps where the attention ran, at the main step's
-                # learning rate
-                step_c1 = ts.step_c + 1
-                ca = {n: t for n, t in params.items()
-                      if group_of(n) == "mlps/crossattn"}
-                apply_adam(ca, g.grads, ts.m, ts.v, lrs, max(step_c1, 1),
-                           {"mlps/crossattn": True})
+                torch.where(ok, g.feat, p.feat, out=p.feat)
+            # the cross-attention's own Adam (optimizer_c,
+            # train.py:614-616): its own step count, run only on steps
+            # where the attention ran, at the main step's learning rate
+            step_c1 = ts.step_c + upd.to(torch.int32)
+            ca = {n: t for n, t in params.items()
+                  if group_of(n) == "mlps/crossattn"}
+            apply_adam(ca, g.grads, ts.m, ts.v, lrs,
+                       device_bias(torch.clamp_min(step_c1, 1), step1),
+                       {"mlps/crossattn": upd})
+        else:
+            apply_adam(params, g.grads, ts.m, ts.v, lrs, step1,
+                       phase1_masks(feat_frozen), ok)
     return ts._replace(step=step1, step_c=step_c1, stats=stats), aux
+
+
+def gate_stats(ok: torch.Tensor, new, old):
+    """``new`` densification statistics where the device flag ``ok`` is
+    True, ``old`` where it is False."""
+    return type(old)(*(torch.where(ok, a, b) for a, b in zip(new, old)))
 
 
 class StepGrads(NamedTuple):

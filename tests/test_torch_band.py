@@ -174,6 +174,39 @@ def test_bands_add_up_to_the_frame(case, n):
                                    err_msg=name)
 
 
+@pytest.mark.timeout(120)
+def test_band_backward_ignores_scatter_reduce(case, monkeypatch):
+    """Under ``GSCREAM_SCATTER_REDUCE=1`` the band backward still reduces
+    through the ``GSCREAM_REORDER`` selector, as JAX's ``_band_bwd_at``
+    does (it never reads the switch): ``scatter_reduce_sums`` is never
+    called, and every band's gradients are bit-equal to the switch-off
+    call's."""
+    from gscream_tpu_torch.ops import rasterize_tiled as rt
+    monkeypatch.delenv("GSCREAM_SCATTER_REDUCE", raising=False)
+    n = 2
+    want = [_port_band(case, n, band)[1] for band in range(n)]
+    calls = []
+    real = rt.scatter_reduce_sums
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(rt, "scatter_reduce_sums", spy)
+    monkeypatch.setenv("GSCREAM_SCATTER_REDUCE", "1")
+    for band in range(n):
+        got = _port_band(case, n, band)[1]
+        for name, g, w in zip(NAMES, got, want[band]):
+            assert torch.equal(g, w), f"band {band}: d {name}"
+    assert not calls, f"scatter_reduce_sums called {len(calls)} times"
+    # the whole frame's backward does read the switch (JAX
+    # rasterize_tiled.py:1227)
+    leaves = [to_torch(a).requires_grad_() for a in case["args"]]
+    full = rt.rasterize_tiled(*leaves[:6], torch_binning(case["binning"]),
+                              leaves[6], W, H)
+    full.color.sum().backward()
+    assert calls
+
+
 def _loss_inputs(h, w):
     rng = np.random.default_rng(3)
     f32 = np.float32

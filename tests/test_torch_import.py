@@ -4,9 +4,10 @@ checkpoints, the synthetic data, the evaluation with LPIPS, the Blender
 reader, the video, visualization and snapshot utilities, and the
 sharded training's mesh, collectives, band losses, sharded step and
 rank functions among them),
-``chip_smoke.py``, ``render_torch.py``, ``train_torch.py`` and
-``evaluate_torch.py`` import, and no module of the JAX package gets
-loaded."""
+``chip_smoke.py``, ``render_torch.py``, ``train_torch.py``,
+``evaluate_torch.py``, ``bench_torch.py`` and ``run_torch.py`` import
+(``utils/trace.py``'s ``maybe_trace`` among the modules), and no module
+of the JAX package gets loaded."""
 import os
 import subprocess
 import sys
@@ -23,7 +24,9 @@ for name in names:
     importlib.import_module(name)
 assert {"gscream_tpu_torch.parallel." + m for m in (
     "mesh", "distributed", "band_loss", "shard", "workers")} <= set(names)
+assert "gscream_tpu_torch.utils.trace" in names
 import chip_smoke, evaluate_torch, render_torch, train_torch
+import bench_torch, run_torch
 bad = sorted(m for m in sys.modules
              if m == "gscream_tpu" or m.startswith("gscream_tpu.")
              or m == "jax" and sys.modules[m] is not None)

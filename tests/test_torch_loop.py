@@ -23,6 +23,15 @@ synthetic data, on the CPU.
 * A forced overflow: a run started at capacity 2048 overflows in its
   first (phase-2) step and re-runs it at a raised tier; it is bit-equal
   to a run started at that tier.
+* The pipeline: ``GSCREAM_PIPELINE=3`` against ``1`` over 10 iterations
+  with an overflow re-run of the first step (re-launching the steps
+  queued behind it), a densification, phase-2 steps and checkpoints:
+  every state tensor, the generator, the losses, ``log.steps`` and
+  ``log.events`` equal, and the state each callback sees equal at every
+  iteration.
+* The device-side write gate: a launched step whose demand exceeds its
+  capacity, or whose loss is not finite, leaves every state tensor (and
+  in phase 1 the generator) bit-equal to before.
 """
 import os
 
@@ -330,3 +339,90 @@ def test_nonfinite_loss_dumps_the_pre_step_state(tmp_path):
                                  device="cpu"), cfg))
     assert dumped.step == 0
     _assert_states_equal(dumped, fresh)
+
+
+CA_FIRST = "to_qk"
+PIPE = dict(RESUME, iterations=10, start_crossattn_from=5, update_interval=6)
+
+
+@pytest.mark.timeout(240)
+def test_pipeline_depth_3_equals_depth_1(scene, tmp_path, monkeypatch):
+    from gscream_tpu_torch.train.state import named_params
+    runs = {}
+    for depth in ("1", "3"):
+        monkeypatch.setenv("GSCREAM_PIPELINE", depth)
+        seen = {}
+
+        def cb(it, t, aux):
+            p = named_params(t.scaffold)
+            seen[it] = [x.clone() for x in (
+                p["params/anchor"], p["params/offset"], p["mlps/color/0/w"],
+                p["mlps/crossattn/" + CA_FIRST], t.m["params/offset"],
+                t.v["mlps/color/0/w"], t.stats.offset_denom,
+                t.stats.opacity_accum, t.step_c)] + [t.step]
+        runs[depth] = _train(scene, PIPE, tmp_path, f"d{depth}", 10,
+                             capacity=2048, checkpoint_interval=4,
+                             callback=cb) + (seen,)
+    (a, alog, aseen), (b, blog, bseen) = runs["1"], runs["3"]
+    over = [e for e in alog.events if e["event"] == "overflow"]
+    assert over and over[0]["it"] == 1
+    assert [e["it"] for e in alog.events if e["event"] == "densify"] == [6]
+    assert any(s["use_cross"] for s in alog.steps)
+    assert alog.losses == blog.losses
+    assert alog.steps == blog.steps and alog.events == blog.events
+    _assert_states_equal(a, b)
+    assert sorted(aseen) == sorted(bseen) == list(range(1, 11))
+    for it in aseen:
+        for x, y in zip(aseen[it], bseen[it]):
+            assert (x == y) if isinstance(x, int) else torch.equal(x, y), it
+    # the callbacks saw each step's own state, not a later one
+    assert not torch.equal(aseen[2][1], aseen[3][1])
+
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("fault,phase2", [("overflow", False),
+                                          ("nonfinite", False),
+                                          ("overflow", True)])
+def test_gated_step_writes_nothing(scene, fault, phase2):
+    from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.model.scaffold import (ScaffoldConfig,
+                                                  init_scaffold)
+    from gscream_tpu_torch.train.state import (init_train_state,
+                                               written_tensors)
+    from gscream_tpu_torch.train.step import aux_values, train_step
+    cfg = ScaffoldConfig(feat_dim=8, n_offsets=2, voxel_size=0.1,
+                         capacity=512)
+    opt = OptimConfig(**RESUME)
+    ts = init_train_state(init_scaffold(
+        scene.points, cfg, torch.Generator().manual_seed(3), device="cpu"),
+        cfg, seed=4)
+    v = scene.views[scene.ref_index]
+    img, mask, depth = (torch.as_tensor(np.asarray(x, np.float32))
+                        for x in (v.image, v.mask, v.depth))
+    box = torch.tensor([0, SIZE, 0, SIZE], dtype=torch.int32)
+    kw = dict(cfg=cfg, opt=opt, is_ref=True, use_crossattn=phase2,
+              width=SIZE, height=SIZE, accumulate=True, feat_frozen=phase2)
+    fg = torch.ones((SIZE, SIZE))
+    ts, aux = train_step(ts, v.camera, img, mask, depth, fg, box,
+                         capacity=CAP, **kw)        # moments and stats set
+    first = aux_values(aux)
+    assert np.isfinite(first[0])
+    before = [t.clone() for t in written_tensors(ts)] + [
+        t.clone() for t in ts.stats] + [ts.step_c.clone()]
+    gen = ts.generator.get_state()
+    if fault == "nonfinite":
+        img = torch.full_like(img, float("nan"))
+    cap = max(int(first[2]) // 2, 8) if fault == "overflow" else CAP
+    new, aux = train_step(ts, v.camera, img, mask, depth, fg, box,
+                          capacity=cap, **kw)
+    vals = aux_values(aux)
+    assert (vals[2] > cap) if fault == "overflow" else not np.isfinite(
+        vals[0])
+    after = written_tensors(new) + list(new.stats) + [new.step_c]
+    for i, (x, y) in enumerate(zip(before, after)):
+        assert torch.equal(x, y), i
+    if phase2:
+        assert bool(aux.cross_ok)
+    else:
+        assert torch.equal(new.generator.get_state(), gen)

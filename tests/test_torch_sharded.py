@@ -20,7 +20,11 @@ Tolerances:
   largest; the visibility counts equal);
 * the loop at mesh (1, 2) against one device: losses rtol 5e-3,
   parameters rtol 5e-3 + atol 5e-4 (``test_train_scene_mesh_routing``'s);
-* the replicas: bit-equal (SHA-256 of the whole state), after every run.
+* the replicas: bit-equal (SHA-256 of the whole state), after every run;
+* the loop at mesh (1, 2) with ``GSCREAM_PIPELINE=3`` against ``1``,
+  4 iterations with an overflow re-run of the first step and phase-2
+  steps: the losses, steps and events equal and the final states
+  bit-equal (the same digest).
 """
 import os
 import sys
@@ -294,6 +298,28 @@ def test_loop_on_a_mesh_tracks_one_device(world, tmp_path, monkeypatch):
         np.testing.assert_allclose(res[0]["state"]["params"][k].numpy(),
                                    t.numpy(), rtol=5e-3, atol=5e-4,
                                    err_msg=k)
+
+
+@pytest.mark.timeout(300)
+def test_mesh_pipeline_depth_3_equals_depth_1(world, tmp_path):
+    from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
+    from gscream_tpu_torch.parallel.workers import pipeline_worker
+    run = RunConfig(
+        model=ModelConfig(feat_dim=8, n_offsets=2, voxel_size=0.1,
+                          anchor_capacity=512),
+        optim=OptimConfig(iterations=4, start_crossattn_from=2,
+                          start_stat=0, update_from=10 ** 9,
+                          update_until=10 ** 9))
+    res = _spawn(pipeline_worker, 2, (1, 2), world["views"], 0,
+                 np.asarray(world["scene"].points), run, str(tmp_path),
+                 dict(capacity=128), (1, 3))
+    one, three = res[0]
+    assert one["digest"] == three["digest"] == res[1][1]["digest"]
+    assert one["losses"] == three["losses"]
+    assert one["steps"] == three["steps"] and one["events"] == three["events"]
+    over = [e for e in one["events"] if e["event"] == "overflow"]
+    assert over and over[0]["it"] == 1, one["events"]
+    assert any(s["use_cross"] for s in one["steps"])
 
 
 @pytest.mark.timeout(120)

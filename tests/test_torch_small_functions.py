@@ -7,7 +7,10 @@ float32 mean each, summed in other orders); ``visible_filter`` equal and
 ``tests/test_torch_scaffold_projection.py``); ``ndc2pix`` bit-equal (the
 same three float32 operations); ``rotmat2qvec`` 1e-12 (the same float64
 eigen-solve); ``estimate_voxel_size`` rtol 1e-4 (the KNN distances of
-``tests/test_torch_scaffold_projection.py``); ``n_alive`` equal.
+``tests/test_torch_scaffold_projection.py``); ``n_alive`` equal;
+``ewa_cov2d`` within ``tests/test_projection.py``'s cov2d bounds (rtol
+2e-4, atol 1e-4) and ``tile_rect`` equal, JAX's
+``test_tile_rect_covers_center`` case among them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +101,60 @@ def test_voxel_size_and_alive_match():
     got = n_alive(st._replace(alive=to_torch(alive)))
     assert got.dtype == torch.int32
     assert int(got) == int(jn(st)) == int(alive.sum()) < 256
+
+
+def test_ewa_cov2d_and_tile_rect_match():
+    """``ewa_cov2d`` and ``tile_rect`` against JAX's on seeded gaussians
+    (some outside the frustum clamp), and JAX's own
+    ``test_tile_rect_covers_center`` case; ``preprocess``'s cov2d is the
+    public function's on the gaussians in front of the near plane."""
+    from gscream_tpu.ops import projection as jp
+    from gscream_tpu_torch.cameras import make_camera
+    from gscream_tpu_torch.ops import projection as tp
+    from tests.utils import random_camera, random_gaussians
+    rng = np.random.default_rng(35)
+    m, s, q, *_ = (np.array(x) for x in random_gaussians(rng, n=150))
+    m[:10, :2] *= 6.0                           # past the 1.3·tan clamp
+    jcam = random_camera(width=W, height=H)
+    tcam = make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, W, H,
+                       device="cpu")
+    fx = W / (2.0 * float(jcam.tan_fovx))
+    fy = H / (2.0 * float(jcam.tan_fovy))
+    cov3d = np.asarray(jp.build_cov3d(jnp.asarray(s), jnp.asarray(q)))
+    pv = np.asarray(jp.project_points(jnp.asarray(m), jcam.w2c,
+                                      jcam.full_proj)[0])
+    ref = jp.ewa_cov2d(jnp.asarray(m), jnp.asarray(pv), jnp.asarray(cov3d),
+                       jcam.w2c, fx, fy, jcam.tan_fovx, jcam.tan_fovy)
+    got = tp.ewa_cov2d(to_torch(m), to_torch(pv), to_torch(cov3d), tcam.w2c,
+                       fx, fy, tcam.tan_fovx, tcam.tan_fovy)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=1e-4)
+    sp = tp.preprocess(to_torch(m), to_torch(s), to_torch(q), tcam.w2c,
+                       tcam.full_proj, W, H, tcam.tan_fovx, tcam.tan_fovy)
+    np.testing.assert_allclose(sp.cov2d.numpy(), got.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+    mean2d = rng.uniform(-40, W + 40, (300, 2)).astype(np.float32)
+    radius = rng.integers(0, 60, 300).astype(np.int32)
+    for tw, th in ((16, 16), (32, 32)):
+        want = jp.tile_rect(jnp.asarray(mean2d), jnp.asarray(radius), W, H,
+                            tw, th)
+        have = tp.tile_rect(to_torch(mean2d), to_torch(radius), W, H, tw, th)
+        for g, r in zip(have, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+    # JAX's test_tile_rect_covers_center, on the port
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 64, 64,
+                      device="cpu")
+    one = tp.preprocess(torch.tensor([[0.0, 0.0, 2.0]]),
+                        torch.full((1, 3), 0.05),
+                        torch.tensor([[1.0, 0.0, 0.0, 0.0]]), cam.w2c,
+                        cam.full_proj, 64, 64, cam.tan_fovx, cam.tan_fovy,
+                        tile_w=16, tile_h=16)
+    rmin, rmax = tp.tile_rect(one.mean2d, one.radius, 64, 64, 16, 16)
+    assert torch.equal(rmin, one.rect_min) and torch.equal(rmax,
+                                                           one.rect_max)
+    cx, cy = float(one.mean2d[0, 0]), float(one.mean2d[0, 1])
+    assert rmin[0, 0] <= cx // 16 < rmax[0, 0]
+    assert rmin[0, 1] <= cy // 16 < rmax[0, 1]
