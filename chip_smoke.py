@@ -129,7 +129,18 @@ catches its own failure):
     (every key of ``bench.py``'s, a finite positive rate, no overflow)
     printed, again with ``GSCREAM_TRACE`` set (a trace must be written),
     then one iteration of its workload with the launch counters reset
-    just before and read just after (``launches_bench``).
+    just before and read just after (``launches_bench``);
+(k) the profiling scripts: ``profile_train_step_torch.py`` in a
+    subprocess on ``bench_torch.py``'s scene at 1008×567, plain and with
+    ``GSCREAM_TRACE`` (``PROFILE_ITERS`` calls per variant: phase 1,
+    phase 1 without statistics, phase 2; then the loss head alone), its
+    lines checked; ``trace_summary_torch.py`` on each variant's trace and
+    on phase (j)'s bench trace (each must exit 0 and name K1 and K2);
+    for each, the device busy ms per call against the wall, the idle
+    share, the five largest device entries and the default route's
+    kernels per call in the trace; then one ``train_step`` of each
+    variant in this process with the launch counters reset just before
+    and read just after (``launches_profile``: K1-K6 once a step).
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
 its path: K7-K9 from phase (e), raw K1 and K2 from phase (i), the others
@@ -138,7 +149,8 @@ render path's, each training route's, the loop's and phase (g)'s
 launch counts (``launches_eval``, ``launches_spiral``), phase (h)'s
 summed over its ranks and meshes (``launches_sharded``), phase (i)'s
 over its steps (``launches_modes``), phase (j)'s per bench iteration
-(``launches_bench``) and the render
+(``launches_bench``), phase (k)'s over its three steps
+(``launches_profile``) and the render
 path's line beside it; K3-K9's lines also carry ``graph_ms`` and the
 profiler's device time and launches per call; K1's and K2's lines also
 carry the tile-count
@@ -151,8 +163,9 @@ them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
-non-zero without printing a result.  ``--phase f|h|i|j`` builds the
-kernels and runs that phase alone (on a host with two or more cards
+non-zero without printing a result.  ``--phase f|h|i|j|k`` builds the
+kernels and runs that phase alone (k after j, whose bench trace it
+reads; on a host with two or more cards
 phase (h)'s ranks take a card each, over NCCL), printing its launches
 (phase (i): raw K1's and K2's lines too) and the card's line but no
 result line.
@@ -199,8 +212,19 @@ LOOP_DEPTHS = (1, 3)
 SHARD_PIPE_OPTIM = dict(iterations=6, start_stat=1, update_from=2,
                         update_interval=3, update_until=6,
                         start_crossattn_from=3)
-# phase (j): bench_torch.py's keys and its time limit
+# phase (j): bench_torch.py's keys and its time limit; the calls its
+# traced block holds (bench_torch.time_config's default)
 BENCH_TIMEOUT_S = 600
+BENCH_ITERS = 10
+# phase (k): profile_train_step_torch.py's calls per variant and the
+# symbols of the default route's kernels in a profiler trace
+PROFILE_ITERS = 5
+ROUTE_SYMBOLS = {"tile_forward": "tile_forward_kernel",
+                 "tile_backward": "tile_backward_kernel",
+                 "segment_reduce": "segreduce_chunks",
+                 "unpack_columns": "unpack_columns_kernel",
+                 "expand_gauss_rows": "expand_gauss_rows_kernel",
+                 "expand_rows": "expand_rows_kernel"}
 # phase (g): the spiral's poses, the views scored again on the CPU (VGG16
 # at 1297x840 takes seconds there), and the keys JAX's results.json and
 # per_view.json carry with LPIPS weights and masks
@@ -1586,6 +1610,14 @@ def run_steps(ts, cfg, opt, cams, targets, n, label):
     return ts, step_ms, launches
 
 
+def kernel_symbol(name):
+    """The function's own name in a profiler's kernel name
+    (``void (anonymous namespace)::tile_forward_kernel<false>(...)`` →
+    ``tile_forward_kernel``)."""
+    return name.replace("(anonymous namespace)::", "").removeprefix(
+        "void ").split("(")[0].split("<")[0].split("::")[-1]
+
+
 def own_kernel_names():
     """The names of the ``__global__`` functions in the port's CUDA
     sources (a template's profiler name adds its arguments)."""
@@ -1635,7 +1667,7 @@ def profile_step(ts, cfg, opt, cams, targets, step_ms, label):
     for dev_ms, _, name in kernels:
         short = name.removeprefix("void ").removeprefix(
             "(anonymous namespace)::").split("(")[0]
-        if short.split("<")[0].split("::")[-1] in mine:
+        if kernel_symbol(name) in mine:
             own[short] = dev_ms
     log(f"  hand-written kernels (device ms per step): "
         + ", ".join(f"{k} {v:.4f}" for k, v in own.items())
@@ -3632,19 +3664,26 @@ SMI = ""
 # ---------------------------------------------------------------------------
 # phase (j): the port's bench
 
+def run_script(args, env, label):
+    """``python3 <script> <args...>`` from the checkout's root in a
+    subprocess; fails unless it exits 0.  Returns its standard output's
+    lines and its standard error."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable] + args, cwd=root, env=env,
+                       capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    require(r.returncode == 0, f"{args[0]} ({label}) exited {r.returncode}:"
+            f"\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return r.stdout.splitlines(), r.stderr
+
+
 def run_bench(env, label):
     """``python3 bench_torch.py`` in a subprocess: its JSON line, checked
     (every key of ``bench.py``'s line, a finite positive value, no
     overflow), and its wall seconds."""
-    root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")],
-                       cwd=root, env=env, capture_output=True, text=True,
-                       timeout=BENCH_TIMEOUT_S)
+    lines, _ = run_script(["bench_torch.py"], env, label)
     took = time.perf_counter() - t0
-    require(r.returncode == 0, f"bench_torch.py ({label}) exited "
-            f"{r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-    lines = r.stdout.strip().splitlines()
     require(len(lines) == 1, f"bench_torch.py ({label}) printed "
             f"{len(lines)} lines: {lines[:4]}")
     rec = json.loads(lines[0])
@@ -3660,12 +3699,13 @@ def run_bench(env, label):
     return rec, took
 
 
-def bench_phase(dev):
+def bench_phase(dev, tdir):
     """Phase (j): ``bench_torch.py`` in a subprocess, plain and with the
-    ``GSCREAM_TRACE`` hook on (its trace directory must not be empty),
-    then its workload in this process with the launch counters reset
-    just before one timed-loop call and read just after.  Returns each
-    kernel's launches per bench iteration."""
+    ``GSCREAM_TRACE`` hook on, writing under ``tdir`` (which must not
+    stay empty), then its workload in this process with the launch
+    counters reset just before one timed-loop call and read just after.
+    Returns each kernel's launches per bench iteration, and the plain
+    and the traced run's lines."""
     import bench_torch
     t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3673,16 +3713,14 @@ def bench_phase(dev):
     env.pop("GSCREAM_TRACE", None)
     rec, took = run_bench(env, "plain")
     log(f"bench_torch.py line: {json.dumps(rec)} ({took:.1f} s) [{SMI}]")
-    with tempfile.TemporaryDirectory() as tdir:
-        traced, took_t = run_bench(dict(env, GSCREAM_TRACE=tdir), "traced")
-        files = [os.path.join(d, f) for d, _, fs in os.walk(tdir)
-                 for f in fs]
-        size = sum(os.path.getsize(f) for f in files)
-        require(files and size > 0, "GSCREAM_TRACE wrote no trace")
-        log(f"bench_torch.py with GSCREAM_TRACE: {len(files)} trace "
-            f"file(s), {size} bytes ({[os.path.relpath(f, tdir) for f in files]}"
-            f"); under the profiler value {traced['value']:.6g} rays/s, "
-            f"iter_ms {traced['iter_ms']:.3f} ({took_t:.1f} s) [{SMI}]")
+    traced, took_t = run_bench(dict(env, GSCREAM_TRACE=tdir), "traced")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(tdir) for f in fs]
+    size = sum(os.path.getsize(f) for f in files)
+    require(files and size > 0, "GSCREAM_TRACE wrote no trace")
+    log(f"bench_torch.py with GSCREAM_TRACE: {len(files)} trace "
+        f"file(s), {size} bytes ({[os.path.relpath(f, tdir) for f in files]}"
+        f"); under the profiler value {traced['value']:.6g} rays/s, "
+        f"iter_ms {traced['iter_ms']:.3f} ({took_t:.1f} s) [{SMI}]")
     w, h = WIDTH, HEIGHT
     cfg, sc, cam = bench_torch._bench_scene(w, h, N_ANCHORS, 10, 0, dev)
     cap = bench_torch._capacity(*bench_torch._count_instances(cfg, sc, cam,
@@ -3702,7 +3740,163 @@ def bench_phase(dev):
                 f"{launches[name]} times in one bench iteration")
     log(f"bench iteration launches {launches} (capacity {cap}); phase (j) "
         f"took {time.perf_counter() - t_start:.1f} s")
-    return launches
+    return launches, rec, traced
+
+
+# ---------------------------------------------------------------------------
+# phase (k): the profiling scripts
+
+def trace_summary(path, iters, env):
+    """``trace_summary_torch.py`` on ``path`` (it must exit 0 and name K1
+    and K2), and the trace's device totals by name at full precision
+    from the same functions: (device ms per call over the ``iters`` calls
+    the trace holds, the script's inferred iteration count, rows as (ms
+    per call, count, name), largest first)."""
+    import re
+    from gscream_tpu_torch.utils.trace import (device_totals,
+                                               find_trace_json, load_events)
+    lines, _ = run_script(["trace_summary_torch.py", path, "100000"], env,
+                          path)
+    m = re.fullmatch(r"# device total ([\d.]+) ms over capture, inferred "
+                     r"iters=(\d+) -> [\d.]+ ms/iter", lines[1])
+    require(m is not None, f"summary header of {path}: {lines[:3]}")
+    named = {kernel_symbol(line.split(None, 2)[2]) for line in lines[4:-1]}
+    for k in ("tile_forward_kernel", "tile_backward_kernel"):
+        require(k in named, f"the summary of {path} does not name {k}")
+    tot, cnt = device_totals(load_events(find_trace_json(path)))
+    total_ms = sum(tot.values()) / 1e3
+    require(abs(total_ms - float(m[1])) <= 0.05 + 1e-9, f"{path}: the "
+            f"summary's total {m[1]} ms, the trace's {total_ms} ms")
+    rows = sorted(((us / 1e3 / iters, cnt[name], name)
+                   for name, us in tot.items()), reverse=True)
+    return total_ms / iters, int(m[2]), rows
+
+
+def split_line(what, wall_ms, wall_traced_ms, summary, iters):
+    """Log a block's device busy ms per call from its trace against its
+    wall (and the traced run's), the idle share, the five largest device
+    entries, the hand-written kernels' ms per call and the default
+    route's kernels per call in the trace."""
+    dev_ms, inferred, rows = summary
+    log(f"{what}: wall {wall_ms:.3f} ms per call, device busy {dev_ms:.4f} "
+        f"ms per call (the trace's total over its {iters} calls; "
+        f"trace_summary_torch.py inferred {inferred} iterations), idle "
+        f"share {max(0.0, 1 - dev_ms / wall_ms):.3f}; under the profiler "
+        f"wall {wall_traced_ms:.3f} ms (idle share "
+        f"{max(0.0, 1 - dev_ms / wall_traced_ms):.3f}) [{SMI}]")
+    for ms, count, name in rows[:5]:
+        log(f"  {ms:9.4f} ms per call  x{count:<4d} {name[:90]}")
+    mine = own_kernel_names()
+    own = {}
+    for ms, _, name in rows:
+        if kernel_symbol(name) in mine:
+            own[kernel_symbol(name)] = own.get(kernel_symbol(name), 0) + ms
+    log("  hand-written kernels (device ms per call): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in own.items()))
+    per_call = {k: sum(c for _, c, n in rows if kernel_symbol(n) == sym)
+                / iters for k, sym in ROUTE_SYMBOLS.items()}
+    log(f"  default route's kernels per call in the trace: {per_call}")
+
+
+def profile_phase(dev, tdir, bench):
+    """Phase (k): ``profile_train_step_torch.py`` on ``bench_torch.py``'s
+    scene at 1008×567 (the script's fallback without a trained model) in
+    a subprocess, plain and with ``GSCREAM_TRACE``, its lines checked;
+    ``trace_summary_torch.py`` on each variant's trace and on phase (j)'s
+    bench trace (``tdir/bench``); each block's device busy ms per call
+    against its wall and the idle share; then one ``train_step`` of each
+    variant in this process with the launch counters reset just before
+    and read just after (K1-K6 once a step).  Returns each kernel's
+    launches summed over those steps."""
+    import re
+    import bench_torch
+    import profile_train_step_torch as prof
+    from gscream_tpu_torch.train.state import StatePool, init_train_state
+    from gscream_tpu_torch.train.step import aux_values
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GSCREAM_TRACE", None)
+    no_model = os.path.join(tdir, "no_model")
+    args = ["profile_train_step_torch.py", no_model, str(PROFILE_ITERS),
+            "--device", dev.type]
+    size = f"{prof.SYNTHETIC['width']}x{prof.SYNTHETIC['height']}"
+    walls = {}
+    for label, run_env in (("plain", env), ("traced", dict(
+            env, GSCREAM_TRACE=os.path.join(tdir, "profile")))):
+        lines, err = run_script(args, run_env, label)
+        for line in lines + [ln for ln in err.splitlines()
+                             if ln.startswith("# train_step")]:
+            log(f"profile_train_step_torch.py ({label}): {line}")
+        require(lines[0].startswith("(no trained model at ")
+                and lines[1].startswith(f"model iter 0  {size}  "),
+                f"profile_train_step_torch.py ({label}): {lines[:2]}")
+        times = {}
+        for line in lines[2:]:
+            m = re.fullmatch(r"(.+?) +([\d.]+) ms(  \(.*\))?", line)
+            require(m is not None and float(m[2]) > 0,
+                    f"profile_train_step_torch.py ({label}): {line!r}")
+            times[m[1]] = float(m[2])
+        want = [v for v, _ in prof.VARIANTS] + [
+            f"loss_terms is_ref={r} {nm}" for r in (False, True)
+            for nm in ("fwd", "fwd+bwd")]
+        require(list(times) == want, f"profile_train_step_torch.py "
+                f"({label}) printed {list(times)}")
+        walls[label] = times
+    log(f"loss head alone at {size} (ms per call, plain run): "
+        + ", ".join(f"{k[len('loss_terms '):]} {v:.2f}"
+                    for k, v in walls["plain"].items()
+                    if k.startswith("loss_terms")) + f" [{SMI}]")
+
+    for label, _ in prof.VARIANTS:
+        summary = trace_summary(os.path.join(tdir, "profile", label),
+                                PROFILE_ITERS, env)
+        split_line(label, walls["plain"][label], walls["traced"][label],
+                   summary, PROFILE_ITERS)
+    rec, traced = bench
+    split_line(f"bench_torch.py at {WIDTH}x{HEIGHT}", rec["iter_ms"],
+               traced["iter_ms"], trace_summary(os.path.join(tdir, "bench"),
+                                                BENCH_ITERS, env),
+               BENCH_ITERS)
+
+    # the launches of one step of each variant, in this process
+    with contextlib.redirect_stdout(sys.stderr):
+        cfg, scaffold, cam, w, h, opt, _ = prof.load_model(no_model, dev)
+    cap = bench_torch._capacity(*bench_torch._count_instances(
+        cfg, scaffold, cam, w, h))
+    step = prof.step_fn(cfg, opt, cam, prof.step_inputs(
+        np.random.default_rng(0), w, h, dev), w, h)
+    ts = init_train_state(scaffold, cfg, 0)
+    pool = StatePool()
+    start = pool.snapshot(ts)
+    counters = launch_counters()
+    total = dict.fromkeys(counters, 0)
+    for label, kw in prof.VARIANTS:
+        # the tier that fits the warm-up and the next step, then those
+        # two steps again with the second counted
+        ts, cap, _ = prof.time_variant(step, pool, start, ts, cap, label,
+                                       kw, 1, sync)
+        ts = pool.restore(start, ts)
+        ts, _ = step(ts, cap, **kw)
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        ts, aux = step(ts, cap, **kw)
+        sync()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        loss, _, demand, _, cross_ok = aux_values(aux)
+        require(math.isfinite(loss) and demand <= cap, f"{label}: loss "
+                f"{loss}, demand {demand} for capacity {cap}")
+        for name in DEFAULT_ROUTE if dev.type == "cuda" else ():
+            require(launches[name] == 1, f"kernel {name} launched "
+                    f"{launches[name]} times in one {label} step")
+        log(f"{label} step launches "
+            f"{ {k: launches[k] for k in DEFAULT_ROUTE} } (loss {loss:.6f}, "
+            f"demand {int(demand)} of {cap}, cross_ok {int(cross_ok)})")
+        for name, n in launches.items():
+            total[name] += n
+    log(f"phase (k) took {time.perf_counter() - t_start:.1f} s")
+    return total
 
 
 def build_kernels(parent):
@@ -3870,7 +4064,8 @@ def render_phase(dev):
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
                  loop_launches, eval_launches, spiral_launches,
-                 sharded_launches, modes, modes_launches, bench_launches):
+                 sharded_launches, modes, modes_launches, bench_launches,
+                 profile_launches):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), raw K1 and K2 from
     phase (i), the others from phase (d)), timed at its view 0 and holding
@@ -3878,7 +4073,8 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
     the training loop's (phase (f)), the render path's, the evaluated test
     split's and the spiral's (phase (g)), the sharded steps' (phase (h),
     summed over the ranks and meshes), the modes' steps' and the raw
-    sharded step's (phase (i)), one bench iteration's (phase (j)), and,
+    sharded step's (phase (i)), one bench iteration's (phase (j)), one
+    ``train_step`` of each profiled variant's (phase (k)), and,
     for the kernels the render path runs, its own line."""
     out = []
     for name in launch_counters():
@@ -3897,6 +4093,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_sharded"] = sharded_launches[name]
         rec["launches_modes"] = modes_launches[name]
         rec["launches_bench"] = bench_launches[name]
+        rec["launches_profile"] = profile_launches[name]
         r = render.get(name)
         rec["launches_render"] = r["launches"] if r else 0
         if r:
@@ -3916,9 +4113,10 @@ def main():
                                  "PyTorch/CUDA port")
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
                     "earlier tree: time its K1 and K2 beside the port's")
-    ap.add_argument("--phase", choices=("f", "h", "i", "j"), help="build "
-                    "the kernels and run this phase alone (on a host with "
-                    "several cards, phase (h)'s ranks take one card each)")
+    ap.add_argument("--phase", choices=("f", "h", "i", "j", "k"),
+                    help="build the kernels and run this phase alone (k "
+                    "after j, whose trace it reads; on a host with several "
+                    "cards, phase (h)'s ranks take one card each)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -3927,8 +4125,14 @@ def main():
     SMI = smi_line()
     build_kernels(opts.parent)
     dev = torch.device("cuda")
-    if opts.phase == "j":
-        print(json.dumps({"launches_bench": bench_phase(dev)}))
+    if opts.phase in ("j", "k"):
+        with tempfile.TemporaryDirectory() as tdir:
+            bench_launches, *bench = bench_phase(dev, os.path.join(tdir,
+                                                                   "bench"))
+            rec = {"launches_bench": bench_launches}
+            if opts.phase == "k":
+                rec["launches_profile"] = profile_phase(dev, tdir, bench)
+        print(json.dumps(rec))
         print(SMI)
         return
     if opts.phase:
@@ -3956,13 +4160,15 @@ def main():
     eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
     sharded_launches = sharded_phase(dev, cams, targets)
     modes, modes_launches = modes_phase(dev, cams, targets)
-    bench_launches = bench_phase(dev)
+    with tempfile.TemporaryDirectory() as tdir:
+        bench_launches, *bench = bench_phase(dev, os.path.join(tdir, "bench"))
+        profile_launches = profile_phase(dev, tdir, bench)
     # the kernels line, the card, the result
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
                                   pallas_launches, loop_launches,
                                   eval_launches, spiral_launches,
                                   sharded_launches, modes, modes_launches,
-                                  bench_launches)))
+                                  bench_launches, profile_launches)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,15 @@ def capacity_tier(n: int) -> int:
     return -(-n // g) * g
 
 
+def overflow_tier(demand: int, capacity: int) -> int:
+    """The tier a step whose instance demand overflowed ``capacity`` is
+    re-run at: 25% headroom above the observed demand (densification
+    keeps emission growing between tier checks), and above ``capacity``
+    (loop.py:429-430)."""
+    return max(capacity_tier(demand + demand // 4),
+               capacity_tier(capacity + 1))
+
+
 def get_logger(out_dir: str) -> logging.Logger:
     """Reference get_logger (train.py:994-1010): file + console."""
     logger = logging.getLogger("gscream_tpu_torch")
@@ -397,10 +406,7 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
         vals = aux_values(rec["aux"])
         n_inst = int(vals[2])
         while n_inst > rec["capacity"]:
-            # 25% headroom above the observed count: densification keeps
-            # emission growing between tier checks
-            new_cap = max(capacity_tier(n_inst + n_inst // 4),
-                          capacity_tier(cap + 1))
+            new_cap = overflow_tier(n_inst, cap)
             logger.warning(
                 "iter %d: instance overflow %d > %d — re-running this "
                 "step at capacity tier %d", rec["it"], n_inst, cap, new_cap)

@@ -5,9 +5,10 @@ reader, the video, visualization and snapshot utilities, and the
 sharded training's mesh, collectives, band losses, sharded step and
 rank functions among them),
 ``chip_smoke.py``, ``render_torch.py``, ``train_torch.py``,
-``evaluate_torch.py``, ``bench_torch.py`` and ``run_torch.py`` import
-(``utils/trace.py``'s ``maybe_trace`` among the modules), and no module
-of the JAX package gets loaded."""
+``evaluate_torch.py``, ``bench_torch.py``, ``run_torch.py``,
+``trace_summary_torch.py`` and ``profile_train_step_torch.py`` import
+(``utils/trace.py``'s ``maybe_trace`` and trace summary among the
+modules), and no module of the JAX package gets loaded."""
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ assert {"gscream_tpu_torch.parallel." + m for m in (
 assert "gscream_tpu_torch.utils.trace" in names
 import chip_smoke, evaluate_torch, render_torch, train_torch
 import bench_torch, run_torch
+import trace_summary_torch, profile_train_step_torch
 bad = sorted(m for m in sys.modules
              if m == "gscream_tpu" or m.startswith("gscream_tpu.")
              or m == "jax" and sys.modules[m] is not None)
