@@ -140,14 +140,26 @@ catches its own failure):
     share, the five largest device entries and the default route's
     kernels per call in the trace; then one ``train_step`` of each
     variant in this process with the launch counters reset just before
-    and read just after (``launches_profile``: K1-K6 once a step).
+    and read just after (``launches_profile``: K1-K6 once a step, the
+    dual softmax pair once in the phase-2 step and never in the others);
+(l) the cross-attention's dual softmax (``ops/attention.py``): both
+    kernels at ``ATTN_SHAPE`` against their plain versions (each element
+    within the module's KERNEL_RTOL plus KERNEL_ATOL of the largest plain
+    element), a rerun bit-equal, then each timed (CUDA events, graph
+    replays, the profiler's kernels) beside its plain version, the
+    library's backward and its byte bound; its JSON line printed.  The
+    pair's launch counters are held in the other phases: at least once
+    each per phase-2 iteration of the loop (f) and of the mesh (1, 2)
+    loop (h), once in one launched phase-2 step, never in a phase-1 step
+    (d, e, f, h, i, j, k) or a render (c, g).
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's line from
-its path: K7-K9 from phase (e), raw K1 and K2 from phase (i), the others
-from phase (d), with the
+its path: K7-K9 from phase (e), raw K1 and K2 from phase (i), the dual
+softmax pair A1 and A2 from phase (l), the others from phase (d), with the
 render path's, each training route's, the loop's and phase (g)'s
 launch counts (``launches_eval``, ``launches_spiral``), phase (h)'s
-summed over its ranks and meshes (``launches_sharded``), phase (i)'s
+summed over its ranks and meshes (``launches_sharded``) and over the
+mesh (1, 2) loop's ranks and depths (``launches_sharded_loop``), phase (i)'s
 over its steps (``launches_modes``), phase (j)'s per bench iteration
 (``launches_bench``), phase (k)'s over its three steps
 (``launches_profile``) and the render
@@ -163,9 +175,10 @@ them are also timed beside this tree's), then the card's
 ``nvidia-smi`` name/power-limit line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits
-non-zero without printing a result.  ``--phase f|h|i|j|k`` builds the
+non-zero without printing a result.  ``--phase f|h|i|j|k|l`` builds the
 kernels and runs that phase alone (k after j, whose bench trace it
-reads; on a host with two or more cards
+reads; l the cross-attention's dual softmax alone; on a host with two or
+more cards
 phase (h)'s ranks take a card each, over NCCL), printing its launches
 (phase (i): raw K1's and K2's lines too) and the card's line but no
 result line.
@@ -225,6 +238,15 @@ ROUTE_SYMBOLS = {"tile_forward": "tile_forward_kernel",
                  "unpack_columns": "unpack_columns_kernel",
                  "expand_gauss_rows": "expand_gauss_rows_kernel",
                  "expand_rows": "expand_rows_kernel"}
+# phase (l): the dual softmax of the cross-attention at its benchmark shape
+# (8 heads, the 2,000-token cap on both sides), both sides valid on one
+# prefix as the token draw leaves them, and the yardstick's seed
+ATTN_SHAPE = (8, 2000, 2000)
+ATTN_VALID = 1733
+ATTN_SCALE = 64 ** -0.5
+# its two wrappers (by their names in launch_counters): once each per
+# phase-2 step, never in a phase-1 step or a render
+ATTN_KERNELS = ("dual_softmax_fwd", "dual_softmax_bwd")
 # phase (g): the spiral's poses, the views scored again on the CPU (VGG16
 # at 1297x840 takes seconds there), and the keys JAX's results.json and
 # per_view.json carry with LPIPS weights and masks
@@ -1419,6 +1441,17 @@ def launch_counters():
     return kernel_wrappers()
 
 
+def require_attention(launches, want, label):
+    """Each of the dual softmax pair launched ``want`` times in
+    ``launches`` (on the card; the CPU's plain versions count nothing)."""
+    import torch
+    if not torch.cuda.is_available():
+        return
+    for name in ATTN_KERNELS:
+        require(launches[name] == want, f"kernel {name} launched "
+                f"{launches[name]} times {label}, not {want}")
+
+
 # ---------------------------------------------------------------------------
 # phase (d): the phase-1 training path
 
@@ -2149,6 +2182,16 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
         for name in DEFAULT_ROUTE:
             require(launches[name] > 0, f"kernel {name} was not launched "
                     "by the training loop")
+        # once a phase-2 launch, and again for each phase-2 step the loop
+        # launched anew after an overflow (never in phase 1: counted apart
+        # below, one launched step of each phase)
+        n_p2 = sum(1 for st in log_a.steps if st["use_cross"])
+        attn_n = [launches[k] for k in ATTN_KERNELS]
+        require(dev.type != "cuda" or attn_n[0] == attn_n[1] >= n_p2 > 0,
+                f"the dual softmax pair launched {attn_n} times over "
+                f"{n_p2} phase-2 iterations of the loop")
+        log(f"dual softmax pair launches over the loop: {attn_n} "
+            f"(forward, backward) for its {n_p2} phase-2 iterations")
         for st, loss in zip(log_a.steps, log_a.losses):
             log(f"  loop it {st['it']:2d} view {st['view']} "
                 f"{'phase 2' if st['use_cross'] else 'phase 1'}"
@@ -2256,16 +2299,23 @@ def loop_phase(dev, cfg, scaffold, cams, targets):
     base, _ = sync_calls(lambda: None)
     log(f"sync debug mode switched on and off around nothing: "
         f"{len(base)} {base}")
+    counters = launch_counters()
     for phase2 in (False, True):
         fn = launched(phase2)
         fn()
+        for c in counters.values():
+            c.launches = 0
         calls, aux = sync_calls(fn)
         vals = aux_values(aux)
         require(math.isfinite(vals[0]) and vals[2] <= cap,
                 f"the step counted for synchronizing calls: {vals}")
+        step_launches = {k: c.launches for k, c in counters.items()}
+        require_attention(step_launches, int(phase2),
+                          f"in one launched phase-{1 + phase2} step")
         log(f"synchronizing calls in one launched phase-{1 + phase2} step "
             f"(StatePool.snapshot + train_step, sync debug mode 'warn'): "
-            f"{len(calls)} {calls}")
+            f"{len(calls)} {calls}; dual softmax pair launches "
+            f"{[step_launches[k] for k in ATTN_KERNELS]}")
 
     # one phase-2 step on the reference view, under the profiler
 
@@ -2459,6 +2509,7 @@ def eval_test_split(dev, cfg, scaffold, test_cams, gts, masks, names,
     for name in ("tile_forward", "expand_gauss_rows", "expand_rows"):
         require(launches[name] == n_test, f"kernel {name} launched "
                 f"{launches[name]} times over {n_test} test renders")
+    require_attention(launches, 0, f"over {n_test} test renders")
     for d in res["overflow_demand"]:
         require(d <= capacity, f"overflow: demand {d} > capacity {capacity}")
     for img in res["renders"]:
@@ -2563,6 +2614,7 @@ def eval_spiral(dev, cfg, scaffold, cams, counters, tmp):
     for name in ("tile_forward", "expand_gauss_rows", "expand_rows"):
         require(launches[name] == N_SPIRAL, f"kernel {name} launched "
                 f"{launches[name]} times over {N_SPIRAL} spiral renders")
+    require_attention(launches, 0, f"over {N_SPIRAL} spiral renders")
     for d in res["overflow_demand"]:
         require(d <= capacity, f"overflow: demand {d} > capacity {capacity}")
     base = os.path.join(tmp, "spiral")
@@ -2926,6 +2978,9 @@ def sharded_runs(dev, cfg, scaffold, cams, targets, tmp):
                     f"mesh {shape}: {k} launched "
                     f"{[r['launches'][k] for r in res]} times in "
                     f"{SHARD_STEPS} steps per rank")
+        for r in res:
+            require_attention(r["launches"], 0, f"in mesh {shape}'s "
+                              f"{SHARD_STEPS} phase-1 steps")
         wall[shape] = [r["wall_ms"] for r in res]
         med = float(np.median(res[0]["wall_ms"][1:]))
         staged = [r.get("staged") for r in res]
@@ -3084,17 +3139,32 @@ def sharded_pipeline(dev, cfg, scaffold, cams, targets, tmp):
             f"step: {first['events']}")
     require(all(math.isfinite(x) for x in first["losses"]),
             f"mesh (1, 2): a loss is not finite: {first['losses']}")
+    n_p2 = sum(1 for s in first["steps"] if s["use_cross"])
+    attn_n = [[r["launches"][k] for k in ATTN_KERNELS]
+              for rank in res for r in rank]
+    require(dev.type != "cuda" or all(a == b >= n_p2 > 0
+                                      for a, b in attn_n),
+            f"mesh (1, 2) loop: the dual softmax pair launched {attn_n} "
+            f"times (per rank and depth) over {n_p2} phase-2 iterations")
     log(f"mesh (1, 2) loop at pipeline depths {LOOP_DEPTHS}: bit-equal "
         f"(sha256 {first['digest'][:16]}) on both ranks, losses "
         f"{first['losses']}, events {first['events']}, phase 2 at "
-        f"{[s['it'] for s in first['steps'] if s['use_cross']]}; spawn + "
+        f"{[s['it'] for s in first['steps'] if s['use_cross']]}; dual "
+        f"softmax pair launches per rank and depth {attn_n}; spawn + "
         f"runs {took:.1f} s [{SMI}]")
+    total = {}
+    for rank in res:
+        for r in rank:
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return total
 
 
 def sharded_phase(dev, cams, targets):
     """Phase (h): multi-GPU training over a (data, tiles) mesh on a fresh
     copy of the benchmark model.  Returns each kernel's launches over the
-    sharded steps, summed over ranks and meshes."""
+    sharded steps, summed over ranks and meshes, and over the mesh (1, 2)
+    loop, summed over ranks and pipeline depths."""
     t_start = time.perf_counter()
     cfg, scaffold = bench_scene(dev)
     cams = cams[:N_TRAIN_VIEWS]
@@ -3102,9 +3172,10 @@ def sharded_phase(dev, cams, targets):
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = sharded_runs(dev, cfg, scaffold, cams, targets, tmp)
         sharded_cli(dev, tmp)
-        sharded_pipeline(dev, cfg, scaffold, cams, targets, tmp)
+        loop_launches = sharded_pipeline(dev, cfg, scaffold, cams, targets,
+                                         tmp)
     log(f"phase (h) took {time.perf_counter() - t_start:.1f} s")
-    return launches
+    return launches, loop_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3738,6 +3809,7 @@ def bench_phase(dev, tdir):
     for name in DEFAULT_ROUTE if dev.type == "cuda" else ():
         require(launches[name] == 1, f"kernel {name} launched "
                 f"{launches[name]} times in one bench iteration")
+    require_attention(launches, 0, "in one bench iteration")
     log(f"bench iteration launches {launches} (capacity {cap}); phase (j) "
         f"took {time.perf_counter() - t_start:.1f} s")
     return launches, rec, traced
@@ -3890,8 +3962,11 @@ def profile_phase(dev, tdir, bench):
         for name in DEFAULT_ROUTE if dev.type == "cuda" else ():
             require(launches[name] == 1, f"kernel {name} launched "
                     f"{launches[name]} times in one {label} step")
+        require_attention(launches, int(kw["use_crossattn"]),
+                          f"in one {label} step")
         log(f"{label} step launches "
-            f"{ {k: launches[k] for k in DEFAULT_ROUTE} } (loss {loss:.6f}, "
+            f"{ {k: launches[k] for k in DEFAULT_ROUTE + ATTN_KERNELS} } "
+            f"(loss {loss:.6f}, "
             f"demand {int(demand)} of {cap}, cross_ok {int(cross_ok)})")
         for name, n in launches.items():
             total[name] += n
@@ -4008,6 +4083,8 @@ def render_phase(dev):
                          save_images=True)
         launches = {name: counters[name].launches for name in (
             "tile_forward", "expand_gauss_rows", "expand_rows")}
+        require_attention({k: counters[k].launches for k in ATTN_KERNELS},
+                          0, "by the render path")
         n_png = len(os.listdir(os.path.join(tmp, "test", "renders")))
     log(f"render_set launches over {N_VIEWS} views: {launches}")
     for name, n in launches.items():
@@ -4064,15 +4141,18 @@ def render_phase(dev):
 
 def kernels_line(render, train, train_launches, pallas, pallas_launches,
                  loop_launches, eval_launches, spiral_launches,
-                 sharded_launches, modes, modes_launches, bench_launches,
-                 profile_launches):
+                 sharded_launches, sharded_loop_launches, modes,
+                 modes_launches, bench_launches, profile_launches,
+                 attention):
     """The ``{"kernels": [...]}`` record: each kernel's line from the
     training route that runs it (K7-K9 from phase (e), raw K1 and K2 from
-    phase (i), the others from phase (d)), timed at its view 0 and holding
-    that route's launch count; beside it both training routes' counts,
-    the training loop's (phase (f)), the render path's, the evaluated test
-    split's and the spiral's (phase (g)), the sharded steps' (phase (h),
-    summed over the ranks and meshes), the modes' steps' and the raw
+    phase (i), the dual softmax pair from phase (l) at ATTN_SHAPE with the
+    training loop's counts, the others from phase (d)), timed at its view 0
+    and holding that route's launch count; beside it both training routes'
+    counts, the training loop's (phase (f)), the render path's, the
+    evaluated test split's and the spiral's (phase (g)), the sharded steps'
+    (phase (h), summed over the ranks and meshes) and the mesh (1, 2)
+    loop's (summed over ranks and depths), the modes' steps' and the raw
     sharded step's (phase (i)), one bench iteration's (phase (j)), one
     ``train_step`` of each profiled variant's (phase (k)), and,
     for the kernels the render path runs, its own line."""
@@ -4081,6 +4161,15 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         if name in pallas:
             rec = dict(pallas[name])
             rec["launches"] = pallas_launches[name]
+        elif name in ATTN_KERNELS:
+            tag, part, outputs = (("A1", "fwd", ("attn", "ctx_attn"))
+                                  if name == "dual_softmax_fwd" else
+                                  ("A2", "bwd", ("grad",)))
+            rec = {"name": f"{tag} {name}", "route": "cuda",
+                   "shape": attention["shape"], "valid": attention["valid"],
+                   "tolerance": attention["tolerance"],
+                   "errors": {k: attention["errors"][k] for k in outputs},
+                   **attention[part], "launches": loop_launches[name]}
         elif name in modes:
             rec = dict(modes[name])
         else:
@@ -4091,6 +4180,7 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
         rec["launches_eval"] = eval_launches[name]
         rec["launches_spiral"] = spiral_launches[name]
         rec["launches_sharded"] = sharded_launches[name]
+        rec["launches_sharded_loop"] = sharded_loop_launches[name]
         rec["launches_modes"] = modes_launches[name]
         rec["launches_bench"] = bench_launches[name]
         rec["launches_profile"] = profile_launches[name]
@@ -4105,6 +4195,77 @@ def kernels_line(render, train, train_launches, pallas, pallas_launches,
     return {"kernels": out}
 
 
+def attention_phase(dev):
+    """Phase (l): the dual softmax's two kernels (``ops/attention.py``) at
+    ATTN_SHAPE against their plain versions: each element within the
+    module's KERNEL_RTOL of the plain one plus KERNEL_ATOL of the largest
+    plain element (the worst error and the worst beyond KERNEL_RTOL, over
+    that element, are reported); a rerun bit-equal; then each timed beside
+    its plain version and the library's (autograd through the plain
+    forward, the lines the kernels replaced).  Returns the line."""
+    import torch
+    from gscream_tpu_torch.ops import attention as at
+    h, n, m = ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sim = torch.randn(ATTN_SHAPE, device=dev, generator=gen) * 4.0
+    g_attn = torch.randn(ATTN_SHAPE, device=dev, generator=gen)
+    # the layout autograd hands from the output einsum: (h, M, N) storage
+    g_ctx = torch.randn((h, m, n), device=dev, generator=gen).transpose(1, 2)
+    mask = torch.arange(n, device=dev) < ATTN_VALID
+    cmask = torch.arange(m, device=dev) < ATTN_VALID
+    fwd_args = (sim, ATTN_SCALE, mask, cmask)
+    attn, ctx = at.dual_softmax_fwd(*fwd_args)
+    bwd_args = (attn, ctx, g_attn, g_ctx, ATTN_SCALE, mask, cmask)
+    grad = at.dual_softmax_bwd(*bwd_args)
+    plain = at.dual_softmax_plain(*fwd_args) + (
+        at.dual_softmax_bwd_plain(*bwd_args),)
+
+    def errors(got, ref, label):
+        err = (got - ref).abs()
+        scale = float(ref.abs().max())
+        beyond = float((err - at.KERNEL_RTOL * ref.abs()).max()) / scale
+        require(bool(torch.isfinite(got).all()) and beyond <= at.KERNEL_ATOL,
+                f"dual softmax {label}: {beyond:.3e} of the largest plain "
+                f"element beyond rtol {at.KERNEL_RTOL}, more than "
+                f"{at.KERNEL_ATOL}")
+        return {"over_max": float(err.max()) / scale,
+                "beyond_rtol_over_max": beyond}
+    rec = {"name": "dual_softmax", "shape": list(ATTN_SHAPE),
+           "valid": ATTN_VALID,
+           "tolerance": {"rtol": at.KERNEL_RTOL, "atol_of_max":
+                         at.KERNEL_ATOL},
+           "errors": {k: errors(got, ref, k) for k, got, ref in zip(
+               ("attn", "ctx_attn", "grad"), (attn, ctx, grad), plain)}}
+    again = at.dual_softmax_fwd(*fwd_args)
+    require(torch.equal(again[0], attn) and torch.equal(again[1], ctx)
+            and torch.equal(at.dual_softmax_bwd(*bwd_args), grad),
+            "dual softmax: a rerun is not bit-equal")
+    raw = sim.clone().requires_grad_()
+    lib_out = at.dual_softmax_plain(raw, ATTN_SCALE, mask, cmask)
+
+    def library_bwd():
+        torch.autograd.grad(lib_out, raw, (g_attn, g_ctx), retain_graph=True)
+    size = 4 * h * n * m
+    for tag, kern, plain_fn, lib, need, moved in (
+            ("fwd", lambda: at.dual_softmax_fwd(*fwd_args),
+             lambda: at.dual_softmax_plain(*fwd_args), None, 3 * size,
+             4 * size),
+            ("bwd", lambda: at.dual_softmax_bwd(*bwd_args),
+             lambda: at.dual_softmax_bwd_plain(*bwd_args), library_bwd,
+             5 * size, 9 * size)):
+        r = {"kernel_ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain_fn, 5),
+             "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bytes_needed": need,
+             "bytes_moved": moved}
+        if lib is not None:
+            r["library_ms"] = cuda_ms(lib, 5)
+        device_times(r, kern)
+        r["share"] = r["bound_ms"] / r["graph_ms"]
+        rec[tag] = r
+        log(f"dual softmax {tag}: {r}")
+    log(f"dual softmax at {ATTN_SHAPE}: errors {rec['errors']}")
+    return rec
+
+
 def main():
     global SMI
     import argparse
@@ -4113,7 +4274,7 @@ def main():
                                  "PyTorch/CUDA port")
     ap.add_argument("--parent", metavar="DIR", help="a checkout of an "
                     "earlier tree: time its K1 and K2 beside the port's")
-    ap.add_argument("--phase", choices=("f", "h", "i", "j", "k"),
+    ap.add_argument("--phase", choices=("f", "h", "i", "j", "k", "l"),
                     help="build the kernels and run this phase alone (k "
                     "after j, whose trace it reads; on a host with several "
                     "cards, phase (h)'s ranks take one card each)")
@@ -4125,6 +4286,10 @@ def main():
     SMI = smi_line()
     build_kernels(opts.parent)
     dev = torch.device("cuda")
+    if opts.phase == "l":
+        print(json.dumps(attention_phase(dev)))
+        print(SMI)
+        return
     if opts.phase in ("j", "k"):
         with tempfile.TemporaryDirectory() as tdir:
             bench_launches, *bench = bench_phase(dev, os.path.join(tdir,
@@ -4143,8 +4308,9 @@ def main():
             print(json.dumps({"launches_loop": loop_phase(
                 dev, cfg, scaffold, cams, targets)[0]}))
         elif opts.phase == "h":
-            print(json.dumps({"launches_sharded": sharded_phase(
-                dev, cams, targets)}))
+            launches, loop_launches = sharded_phase(dev, cams, targets)
+            print(json.dumps({"launches_sharded": launches,
+                              "launches_sharded_loop": loop_launches}))
         else:
             lines, launches = modes_phase(dev, cams, targets)
             print(json.dumps({"kernels": list(lines.values()),
@@ -4158,8 +4324,11 @@ def main():
                                            targets)
     loop_launches, trained = loop_phase(dev, cfg, scaffold, cams, targets)
     eval_launches, spiral_launches = eval_phase(dev, cfg, trained, cams)
-    sharded_launches = sharded_phase(dev, cams, targets)
+    sharded_launches, sharded_loop_launches = sharded_phase(dev, cams,
+                                                            targets)
     modes, modes_launches = modes_phase(dev, cams, targets)
+    attention = attention_phase(dev)
+    print(json.dumps(attention))
     with tempfile.TemporaryDirectory() as tdir:
         bench_launches, *bench = bench_phase(dev, os.path.join(tdir, "bench"))
         profile_launches = profile_phase(dev, tdir, bench)
@@ -4167,8 +4336,9 @@ def main():
     print(json.dumps(kernels_line(render, train, train_launches, pallas,
                                   pallas_launches, loop_launches,
                                   eval_launches, spiral_launches,
-                                  sharded_launches, modes, modes_launches,
-                                  bench_launches, profile_launches)))
+                                  sharded_launches, sharded_loop_launches,
+                                  modes, modes_launches, bench_launches,
+                                  profile_launches, attention)))
     print(SMI)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

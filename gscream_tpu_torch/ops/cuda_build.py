@@ -44,8 +44,10 @@ SOURCES = {
     "rasterize_bwd": ("rasterize_bwd.cu", []),
     "shuffle": ("shuffle.cu", []),
     "segreduce": ("segreduce.cu", []),
+    "attention": ("attention.cu", []),
 }
 
+_ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, object] = {}
@@ -141,13 +143,12 @@ def library(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, signature: str):
     """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
     types declared: ``signature`` has one letter per argument, "p" for a
-    pointer or the stream, "i" for an int.  Every entry returns the
-    launch's ``cudaError_t`` as an int."""
+    pointer or the stream, "i" for an int, "f" for a float.  Every entry
+    returns the launch's ``cudaError_t`` as an int."""
     fn = _FUNCS.get(symbol)
     if fn is None:
         fn = getattr(library(name), symbol)
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                       for c in signature]
+        fn.argtypes = [_ARG_TYPES[c] for c in signature]
         fn.restype = ctypes.c_int
         _FUNCS[symbol] = fn
     return fn

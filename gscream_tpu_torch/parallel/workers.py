@@ -114,11 +114,11 @@ def steps_worker(rank: int, world: int, device, shape: Sequence[int], cfg,
 
 
 def kernel_wrappers() -> Dict:
-    """The kernel wrappers by name (the ten kernels', and raw K1's and
-    K2's), looked up on their modules now; each counts its launches in its
-    ``launches`` attribute (never on the CPU, where the wrappers take
-    their plain versions)."""
-    from ..ops import emission, rasterize_tiled, shuffle
+    """The kernel wrappers by name (the ten kernels', raw K1's and K2's,
+    and the cross-attention's dual softmax pair), looked up on their
+    modules now; each counts its launches in its ``launches`` attribute
+    (never on the CPU, where the wrappers take their plain versions)."""
+    from ..ops import attention, emission, rasterize_tiled, shuffle
     return {"tile_forward": rasterize_tiled.run_forward,
            "tile_backward": rasterize_tiled.run_backward,
            "tile_forward_raw": rasterize_tiled.run_forward_raw,
@@ -129,7 +129,9 @@ def kernel_wrappers() -> Dict:
            "expand_rows": emission.expand_rows,
            "segment_reduce_rows": rasterize_tiled.segment_reduce_rows,
            "pack_columns": shuffle.pack_columns,
-           "expand1": emission.expand1, "expand2": emission.expand2}
+           "expand1": emission.expand1, "expand2": emission.expand2,
+           "dual_softmax_fwd": attention.dual_softmax_fwd,
+           "dual_softmax_bwd": attention.dual_softmax_bwd}
 
 
 def train_scene_worker(rank: int, world: int, device, shape: Sequence[int],
@@ -137,18 +139,23 @@ def train_scene_worker(rank: int, world: int, device, shape: Sequence[int],
                        kwargs: Dict):
     """``train_scene(mesh=...)`` on the views (``NamedTuple``s with a
     ``camera``, which is moved to ``device``): its
-    losses, steps and events, the final state and its digest (the loop
-    checks the replicas itself)."""
+    losses, steps and events, each kernel's launches over the run (the
+    counts set to 0 just before it), the final state and its digest (the
+    loop checks the replicas itself)."""
     from ..train.loop import train_scene
 
     mesh = make_mesh(*shape)
     views = [v._replace(camera=camera_to(v.camera, device)) for v in views]
+    counters = kernel_wrappers()
+    for fn in counters.values():
+        fn.launches = 0
     ts, log = train_scene(views, ref_index, points, run,
                           out_dir=out_dir, mesh=mesh, device=device,
                           **kwargs)
     return {"losses": log.losses, "steps": log.steps, "events": log.events,
-            "iter_times": log.iter_times, "state": host_state(ts),
-            "digest": check_replicas(ts, mesh)}
+            "iter_times": log.iter_times,
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "state": host_state(ts), "digest": check_replicas(ts, mesh)}
 
 
 def pipeline_worker(rank: int, world: int, device, shape: Sequence[int],
