@@ -47,6 +47,11 @@ class DensifyStats(NamedTuple):
     grow_overflow: torch.Tensor      # () int32: candidates dropped for space
 
 
+# the fields with a row per anchor slot
+PER_ANCHOR_STATS = ("opacity_accum", "anchor_demon", "offset_grad_accum",
+                    "offset_denom")
+
+
 def init_stats(cfg: ScaffoldConfig, device) -> DensifyStats:
     C, k = cfg.capacity, cfg.n_offsets
 

@@ -209,10 +209,10 @@ def load_checkpoint(path: str, template):
     """Inverse of :func:`save_checkpoint`: the checkpoint's values copied
     into ``template`` (a ``TrainState`` of the same configuration, on the
     device to restore to): parameters in place, moments, statistics,
-    ``alive`` and ``xyz_max`` as new tensors, the generator's state set.
-    Returns the restored ``TrainState``."""
+    ``alive`` and ``xyz_max`` as new tensors, the generator's state set,
+    the anchor span computed anew.  Returns the restored ``TrainState``."""
     from ..model.densify import DensifyStats
-    from ..train.state import named_params
+    from ..train.state import anchor_span, named_params
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if blob.get("format") != CHECKPOINT_FORMAT:
         raise ValueError(f"{path}: not a {CHECKPOINT_FORMAT} checkpoint")
@@ -237,7 +237,7 @@ def load_checkpoint(path: str, template):
         same_keys(d, params, "moment")
         return {k: d[k].to(dev) for k in params}
     template.generator.set_state(blob["generator"])
-    return template._replace(
+    ts = template._replace(
         scaffold=sc._replace(alive=blob["alive"].to(dev),
                              xyz_max=blob["xyz_max"].to(dev)),
         m=moments(blob["m"]), v=moments(blob["v"]),
@@ -246,6 +246,7 @@ def load_checkpoint(path: str, template):
                             device=dev),
         stats=DensifyStats(**{k: t.to(dev)
                               for k, t in blob["stats"].items()}))
+    return ts._replace(span=anchor_span(ts))
 
 
 def write_scene_artifacts(model_path: str, views, points) -> None:

@@ -270,9 +270,11 @@ def decode(state: ScaffoldState, cam_center: torch.Tensor,
     Per anchor: view direction and distance condition four MLPs; each
     anchor spawns k gaussians at ``anchor + offset·scaling[:,:3]`` with
     scale ``scaling[:,3:]·σ(cov[:3])`` and rotation ``normalize(cov[3:7])``.
+    C is the row count of ``state.params``: the capacity, or the training
+    step's anchor span.
     """
     p = state.params
-    C, k = cfg.capacity, cfg.n_offsets
+    C, k = p.anchor.shape[0], cfg.n_offsets
     alive = state.alive if visible_mask is None else (
         state.alive & visible_mask)
 

@@ -51,16 +51,8 @@ from ..model.scaffold import ScaffoldConfig, init_scaffold, n_alive
 from ..precision import ensure_fp32_matmuls
 from ..parallel.shard import (check_replicas, make_sharded_train_step,
                               sharded_view_batch)
-from .state import StatePool, init_train_state
+from .state import StatePool, anchor_span, capacity_tier, init_train_state
 from .step import aux_values, train_step
-
-
-def capacity_tier(n: int) -> int:
-    """Smallest fixed instance capacity holding ``n``, on a 12.5%
-    (pow2/8) granularity grid of multiples of 1024 (loop.py:36-48)."""
-    n = max(int(n), 1)
-    g = max(1024, 1 << max(int(n - 1).bit_length() - 3, 0))
-    return -(-n // g) * g
 
 
 def overflow_tier(demand: int, capacity: int) -> int:
@@ -145,7 +137,8 @@ class TrainLog:
     # overflow re-runs and densifications, as dicts with an "event" key
     events: List[Dict] = field(default_factory=list)
     # per committed step: it, view, is_ref, use_cross, cross_ok,
-    # instances (the overflow demand) and the capacity it ran at
+    # instances (the overflow demand), the capacity it ran at and its
+    # anchor span (the slots it ran over, ``train.state.anchor_span``)
     steps: List[Dict] = field(default_factory=list)
 
 
@@ -389,6 +382,8 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 accumulate=rec["accumulate"])
         rec["dispatch_s"] = time.time() - t0
         rec["capacity"] = cap
+        # the sharded step runs over every slot
+        rec["span"] = state.span if mesh is None else cfg.capacity
         return rec
 
     def launch(rec: Dict, state) -> Dict:
@@ -436,18 +431,20 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
             it=it, view=rec["vi"], is_ref=dev_views[rec["vi"]]["is_ref"],
             use_cross=rec["use_cross"], cross_ok=bool(vals[4]),
             instances=rec["n_inst"], capacity=rec["capacity"],
-            views=rec.get("vis", [rec["vi"]])))
+            span=rec["span"], views=rec.get("vis", [rec["vi"]])))
         if not main_rank:
             return after
         if it % 100 == 0 or it == iters:
             anchors = int(n_alive(after.scaffold))
             logger.info(
-                "iter %d/%d loss %.5f anchors %d instances %d "
-                "(%.1f it/s)", it, iters, loss, anchors, rec["n_inst"],
+                "iter %d/%d loss %.5f anchors %d anchor span %d instances %d "
+                "(%.1f it/s)", it, iters, loss, anchors, rec["span"],
+                rec["n_inst"],
                 (it - start_it + 1) / max(time.time() - t_start, 1e-9))
             mlog.log(it, {"loss": loss, "l1": float(vals[1]),
                           "iter_time": rec["dispatch_s"],
                           "total_points": anchors,
+                          "anchor_span": rec["span"],
                           "instances": rec["n_inst"]})
         if callback is not None:
             if callback_wants_mlog:
@@ -511,10 +508,14 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 grad_threshold=opt.densify_grad_threshold,
                 min_opacity=opt.min_opacity)
             ts = ts._replace(scaffold=sc, stats=stats, m=m_, v=v_)
+            # growth takes the lowest free slots: the span grows once the
+            # prefix is full, and never shrinks
+            ts = ts._replace(span=max(ts.span, anchor_span(ts)))
             log.events.append(dict(
                 event="densify", it=it, alive_before=before,
                 alive_after=int(sc.alive.sum()),
-                grow_overflow=int(stats.grow_overflow)))
+                grow_overflow=int(stats.grow_overflow),
+                span_after=ts.span))
         # periodic autosave at a committed iteration boundary
         if checkpoint_interval and it % checkpoint_interval == 0:
             drain_all()

@@ -23,14 +23,14 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import OptimConfig
 from ..device import resolve_device
-from ..model.densify import DensifyStats, init_stats
+from ..model.densify import PER_ANCHOR_STATS, DensifyStats, init_stats
 from ..model.scaffold import (AnchorParams, ScaffoldConfig, ScaffoldState,
                               scaffold_from_numpy)
 
@@ -122,6 +122,59 @@ class TrainState(NamedTuple):
     # the phase-2 token draws (the JAX state's PRNG key), on the state's
     # device; checkpoints carry its state
     generator: torch.Generator = None
+    # the anchor span: a step runs over the first ``span`` anchor slots
+    # (:func:`anchor_span`; set by the constructors below)
+    span: Optional[int] = None
+
+
+def capacity_tier(n: int) -> int:
+    """Smallest fixed instance capacity holding ``n``, on a 12.5%
+    (pow2/8) granularity grid of multiples of 1024 (JAX loop.py:36-48)."""
+    n = max(int(n), 1)
+    g = max(1024, 1 << max(int(n - 1).bit_length() - 3, 0))
+    return -(-n // g) * g
+
+
+@torch.no_grad()
+def anchor_span(ts: TrainState) -> int:
+    """The anchor span of ``ts``: the rows a step has to run over.
+
+    ``h`` is one past the highest slot that is alive or holds a nonzero
+    ``params/*`` first or second moment; the span is ``capacity_tier(h)``,
+    at most the capacity.  A slot at or beyond it is dead and its moments
+    are zero, so a step over the whole capacity gives it a zero gradient,
+    adds nothing to its statistics and leaves its parameters and moments
+    as they are (Adam's update of a zero moment is 0): the step over the
+    first ``span`` rows is the same step.  One host read."""
+    alive = ts.scaffold.alive
+    C = alive.shape[0]
+    used = alive.clone()
+    for f in AnchorParams._fields:
+        for mom in (ts.m, ts.v):
+            used |= (mom[f"params/{f}"].reshape(C, -1) != 0).any(dim=1)
+    slot = torch.arange(1, C + 1, device=alive.device)
+    h = int(torch.max(torch.where(used, slot, 0)))
+    return min(C, capacity_tier(h))
+
+
+def anchor_rows(ts: TrainState, rows: int) -> TrainState:
+    """``ts`` with every per-anchor tensor cut to its first ``rows`` rows:
+    the parameters, ``alive``, the ``params/*`` moments and the
+    statistics, as views of the same storage (an in-place write to them
+    writes ``ts``'s tensors).  The decoders, the cross-attention arrays
+    and their moments stay whole."""
+    sc, st = ts.scaffold, ts.stats
+
+    def cut(moments):
+        return {k: t[:rows] if k.startswith("params/") else t
+                for k, t in moments.items()}
+    return ts._replace(
+        scaffold=sc._replace(
+            params=type(sc.params)(*(t[:rows] for t in sc.params)),
+            alive=sc.alive[:rows]),
+        m=cut(ts.m), v=cut(ts.v),
+        stats=st._replace(**{f: getattr(st, f)[:rows]
+                             for f in PER_ANCHOR_STATS}))
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -131,16 +184,18 @@ def make_generator(seed: int, device) -> torch.Generator:
 def init_train_state(scaffold: ScaffoldState, cfg: ScaffoldConfig,
                      seed: int = 0) -> TrainState:
     """Zero moments and statistics at step 0; the token generator seeded
-    with ``seed`` (the JAX loop keys its state with ``seed + 1``)."""
+    with ``seed`` (the JAX loop keys its state with ``seed + 1``); the
+    span of the alive slots (:func:`anchor_span`)."""
     params = named_params(scaffold)
     dev = scaffold.alive.device
-    return TrainState(
+    ts = TrainState(
         scaffold=scaffold,
         m={k: torch.zeros_like(t.detach()) for k, t in params.items()},
         v={k: torch.zeros_like(t.detach()) for k, t in params.items()},
         step=0, step_c=torch.zeros((), dtype=torch.int32, device=dev),
         stats=init_stats(cfg, dev),
         generator=make_generator(seed, dev))
+    return ts._replace(span=anchor_span(ts))
 
 
 def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
@@ -152,7 +207,7 @@ def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
     them; ``ts.m`` and ``ts.v`` are ``(AnchorParams, MLPParams)`` trees of
     the same shapes, the cross-attention moments among them; ``ts.step``,
     ``ts.step_c`` and ``ts.stats`` (the five ``DensifyStats`` fields) come
-    across as they are.  The PRNG key is not carried (a JAX key cannot
+    across as they are; the anchor span is computed.  The PRNG key is not carried (a JAX key cannot
     seed a torch.Generator to the same draws): the state gets a generator
     seeded with 0, and the parity tests feed JAX's draws in place of the
     port's (``train.step.token_priorities``)."""
@@ -168,11 +223,12 @@ def train_state_from_numpy(ts: Any, cfg: ScaffoldConfig,
 
     stats = DensifyStats(*(torch.as_tensor(np.array(x)).to(dev)
                            for x in ts.stats))
-    return TrainState(scaffold=scaffold, m=moments(ts.m), v=moments(ts.v),
-                      step=int(ts.step),
-                      step_c=torch.tensor(int(ts.step_c), dtype=torch.int32,
-                                          device=dev),
-                      stats=stats, generator=make_generator(0, dev))
+    out = TrainState(scaffold=scaffold, m=moments(ts.m), v=moments(ts.v),
+                     step=int(ts.step),
+                     step_c=torch.tensor(int(ts.step_c), dtype=torch.int32,
+                                         device=dev),
+                     stats=stats, generator=make_generator(0, dev))
+    return out._replace(span=anchor_span(out))
 
 
 def bias_correction(step: int) -> Tuple[float, float]:

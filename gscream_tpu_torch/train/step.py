@@ -36,6 +36,13 @@ step at a larger capacity from the state it kept.  The host-side
 advance the generator at the launch too (its state is host data): the
 loop puts both back from its snapshot of the state before the step
 (``train.state.StatePool``) when it re-runs one.
+
+The step runs over the state's anchor span, the first ``ts.span`` slots
+(``train.state.anchor_span``): every per-anchor tensor of the step, the
+decode, projection, binning, backward, statistics and Adam, has ``span``
+rows, and the slots beyond it are neither read nor written.  They are
+dead with zero moments, so the step over the whole capacity leaves them
+as they are too.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from torch.profiler import record_function
 from ..cameras import Camera
 from ..config import OptimConfig
 from ..device import device_constant
-from ..model.densify import accumulate_stats
+from ..model.densify import PER_ANCHOR_STATS, accumulate_stats
 from ..model.scaffold import Decoded, ScaffoldConfig, ScaffoldState, decode
 from ..ops import losses as L
 from ..ops.attention import bidirectional_attn
@@ -56,8 +63,8 @@ from ..ops.projection import Splats, preprocess
 from ..ops.rasterize_tiled import (TILE_H, TILE_W, build_binning,
                                    rasterize_tiled)
 from ..ops.ssim import ssim, ssim_masked
-from .state import (TrainState, apply_adam, device_bias, group_of, lr_tree,
-                    named_params)
+from .state import (TrainState, anchor_rows, apply_adam, device_bias,
+                    group_of, lr_tree, named_params)
 
 
 class StepAux(NamedTuple):
@@ -340,7 +347,8 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     ``ok`` is False (an instance demand above ``capacity`` or a loss that
     is not finite): then no tensor of the state is written (module
     docstring).  Nothing is read to the host; ``aux_values(aux)`` reads
-    the scalars.
+    the scalars.  It runs over the first ``ts.span`` anchor slots
+    (module docstring).
 
     gt_image (3,H,W) · gt_mask (1,H,W) · midas_depth (1,H,W) ·
     fg_box_mask (H,W) random box for the ref-view fg depth term ·
@@ -351,9 +359,12 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
     if (camera.width, camera.height) != (width, height):
         raise ValueError(f"camera is {camera.width}x{camera.height}, the "
                          f"step was asked for {width}x{height}")
+    whole = ts
+    C, k, S = cfg.capacity, cfg.n_offsets, ts.span
+    if S < C:
+        ts = anchor_rows(ts, S)
     scaffold = ts.scaffold
     dev = scaffold.alive.device
-    C, k = cfg.capacity, cfg.n_offsets
     step1 = ts.step + 1
     p = scaffold.params
 
@@ -365,9 +376,12 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         with record_function("step/tokens"), torch.no_grad():
             if cross_box is None:
                 cross_box = torch.zeros(4, dtype=torch.int32, device=dev)
-            n_tok = min(opt.crossattn_max_tokens, C)
+            # drawn for every slot, so the generator's stream does not
+            # depend on the span
+            pri = tuple(u[:S] for u in token_priorities(ts, C))
+            n_tok = min(opt.crossattn_max_tokens, S)
             cross = sample_cross_tokens(
-                token_priorities(ts, C), pre.mean2d[:, 0], pre.mean2d[:, 1],
+                pri, pre.mean2d[:, 0], pre.mean2d[:, 1],
                 pre.radius > 0, scaffold.alive, gt_mask[0], cross_box,
                 width, height, n_tok)
         grad_masks = dict(phase2_masks(True), **{"mlps/crossattn": True})
@@ -390,18 +404,21 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         ok = (demand <= capacity) & torch.isfinite(g.loss.detach())
 
     # --- densification stats (training_statis, train.py:599) ------------
-    stats = ts.stats
+    stats = whole.stats
     if accumulate:
         with torch.no_grad():
             # screen grads in the reference's NDC units (backward.cu:592)
             ndc = g.screen * device_constant((0.5 * width, 0.5 * height),
                                              dev)
-            grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(C, k)
+            grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(S, k)
             gauss_valid = (g.dec.active
-                           & (g.splats.radius > 0)).reshape(C, k)
-            stats = gate_stats(ok, accumulate_stats(
-                stats, g.dec.neural_opacity.detach(), grad_norm,
-                gauss_valid, anchor_visible), stats)
+                           & (g.splats.radius > 0)).reshape(S, k)
+            rows = gate_stats(ok, accumulate_stats(
+                ts.stats, g.dec.neural_opacity.detach(), grad_norm,
+                gauss_valid, anchor_visible), ts.stats)
+            stats = rows if S == C else stats._replace(**{
+                f: torch.cat([getattr(rows, f), getattr(stats, f)[S:]])
+                for f in PER_ANCHOR_STATS})
 
     # --- masked Adam, in place ------------------------------------------
     # a step with cross_ok False changes no parameter and no moment (and
@@ -433,7 +450,7 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         else:
             apply_adam(params, g.grads, ts.m, ts.v, lrs, step1,
                        phase1_masks(feat_frozen), ok)
-    return ts._replace(step=step1, step_c=step_c1, stats=stats), aux
+    return whole._replace(step=step1, step_c=step_c1, stats=stats), aux
 
 
 def gate_stats(ok: torch.Tensor, new, old):
@@ -447,7 +464,8 @@ class StepGrads(NamedTuple):
     l1: torch.Tensor
     grads: Dict[str, torch.Tensor]  # named_params key → gradient, for
                                     # the groups the masks update
-    screen: torch.Tensor     # (C·k, 2) gradient of the projected means
+    screen: torch.Tensor     # (N·k, 2) gradient of the projected means
+                             # of the N anchor rows given
     dec: Decoded
     splats: Splats
     binning: Binning
@@ -488,7 +506,7 @@ def loss_and_grads(scaffold: ScaffoldState, camera: Camera, gt_image,
                 ca, anchor.feat, cross, opt.crossattn_feat_update_ema,
                 is_ref, cfg.attn_heads, cfg.attn_head_dim)
         render_params = anchor._replace(feat=feat_used)
-    screen_zero = torch.zeros((cfg.capacity * cfg.n_offsets, 2),
+    screen_zero = torch.zeros((p.anchor.shape[0] * cfg.n_offsets, 2),
                               device=dev, requires_grad=True)
     if render_loss is None:
         out, dec, splats, binning = render_from_params(
