@@ -14,7 +14,8 @@ of ``gscream_tpu/parallel/shard.py``).
   otherwise): K2 zeroes every slot outside the band's ranges, so each
   band's sums are its partials, added over the mesh.
 * Views are sharded along ``data``; the step's loss is the gated mean
-  over the views.
+  over the views.  The step is ``train_step``'s, with its span, token
+  draw and update (``train.step``'s module docstring).
 
 Every rank holds the whole replicated :class:`~..train.state.TrainState`
 and applies the same masked Adam to the same reduced gradients: the sums
@@ -37,17 +38,14 @@ from torch.profiler import record_function
 
 from ..cameras import Camera
 from ..config import OptimConfig
-from ..device import device_constant
-from ..model.densify import accumulate_stats
 from ..model.scaffold import ScaffoldConfig, ScaffoldState
 from ..ops import rasterize_tiled as rt
 from ..ops.binning import Binning, overflow_demand
 from ..ops.rasterize_tiled import TILE_H, TILE_W, TiledOut
-from ..train.state import (TrainState, apply_adam, device_bias, group_of,
-                           lr_tree, named_params)
-from ..train.step import (gate_stats, loss_and_grads, pack_aux, phase1_masks,
-                          phase2_masks, prefilter, sample_cross_tokens,
-                          splat_view, token_priorities)
+from ..train.state import TrainState, anchor_rows, named_params
+from ..train.step import (grad_masks, loss_and_grads, pack_aux, phase1_masks,
+                          phase2_tokens, prefilter, screen_grad_norm,
+                          splat_view, update_state)
 from .band_loss import band_loss_terms
 from .distributed import all_gather, ordered_sum, pmax, pmean, sum_over
 from .mesh import Mesh
@@ -175,10 +173,10 @@ def render_view_sharded(scaffold: ScaffoldState, camera: Camera, bg,
     """decode → preprocess → bin the whole view → rasterize the band;
     returns (TiledOut of the band, Decoded, Splats, Binning).
     ``screen_zero`` is the densification's screen-gradient probe, as in
-    :func:`~..train.step.render_from_params`."""
+    :func:`~..train.step.render_from_params` (zeros for the rows given)."""
     if screen_zero is None:
-        screen_zero = torch.zeros(
-            (cfg.capacity * cfg.n_offsets, 2), device=scaffold.alive.device)
+        screen_zero = scaffold.params.anchor.new_zeros(
+            (scaffold.alive.shape[0] * cfg.n_offsets, 2))
     dec, splats, mean2d, binning = splat_view(
         scaffold.params, scaffold.mlps, scaffold, camera, screen_zero, cfg,
         capacity)
@@ -314,32 +312,30 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
                             spatial_lr_scale: float = 1.0):
     """The training step over a (data, tiles) mesh (shard.py:318):
     ``step(ts, batch, use_crossattn=False, feat_frozen=False,
-    accumulate=False) -> (TrainState, StepAux)``, in place like
-    :func:`~..train.step.train_step`, with its semantics over the
-    ``B = mesh.data`` views of ``batch``, all from the same pre-step
-    state:
+    accumulate=False) -> (TrainState, StepAux)``,
+    :func:`~..train.step.train_step` over the ``B = mesh.data`` views of
+    ``batch``, all from the same pre-step state, over the same anchor
+    span and through the same update (``train.step.update_state``):
 
     * each view's ``is_ref`` loss and the reference view's fg-box term;
-    * phase 2: every rank draws each view's token priorities from the
-      state's generator in view order (view j the j-th draw, so B = 1
-      draws what ``train_step`` draws); a view with cross-attention on
-      whose sampling failed is dropped (the reference's ``except:
-      continue``); the gate ``g`` is 1 for the others;
+    * phase 2: each view's tokens drawn in view order (view j the j-th
+      draw, so B = 1 draws what ``train_step`` draws); a view with
+      cross-attention on whose sampling failed is dropped (the
+      reference's ``except: continue``); the gate ``g`` is 1 for the
+      others;
     * the loss differentiated is the gated mean Σ g·loss / max(Σ g, 1);
       the reported loss and l1 are the plain means;
     * densification statistics from each view's own screen gradient
       (rescaled by Σ g), gated, added view by view in order;
     * the EMA feature writes: each view's deltas summed over the views
-      (for B = 1 the view's features, as ``train_step`` writes them);
-    * one masked Adam, and the cross-attention's own when any view ran it.
+      (for B = 1 the view's features).
 
     The overflow demand is the max over every rank and the step's
     scalars are gathered before anything is written, so every rank's
     write gate ``ok`` is the same device flag, read by no rank: above
     ``capacity`` (or a loss that is not finite) no rank writes, and the
-    caller re-runs the step on all ranks from the state it kept, as
-    :func:`~..train.step.train_step`'s does.  For B = 1 and any band count the step
-    is ``train_step``'s up to float32 reassociation."""
+    caller re-runs the step on every rank.  For B = 1 and any band count
+    the step is ``train_step``'s up to float32 reassociation."""
     B = mesh.data
     C, k = cfg.capacity, cfg.n_offsets
 
@@ -348,34 +344,29 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
         if len(batch.cameras) != B:
             raise ValueError(f"a batch of {len(batch.cameras)} views for a "
                              f"mesh of {B} data rows")
+        whole, S = ts, ts.span
+        if S < C:
+            ts = anchor_rows(ts, S)
         sc = ts.scaffold
         dev = sc.alive.device
         d = mesh.data_index
-        step1 = ts.step + 1
         pres = ([prefilter(sc, cam) for cam in batch.cameras]
                 if accumulate or use_crossattn else None)
         cross = None
         gate = torch.ones(B, device=dev)
         if use_crossattn:
-            with record_function("step/tokens"), torch.no_grad():
-                n_tok = min(opt.crossattn_max_tokens, C)
-                toks = [sample_cross_tokens(
-                    token_priorities(ts, C), pre.mean2d[:, 0],
-                    pre.mean2d[:, 1], pre.radius > 0, sc.alive,
-                    batch.mask[j][0], batch.cross_box[j], width, height,
-                    n_tok) for j, pre in enumerate(pres)]
-                act = torch.tensor(batch.cross_enable).to(
-                    dev, non_blocking=True)
-                ok_act = torch.stack([t.ok for t in toks]) & act
-                gate = torch.where(act, ok_act.to(torch.float32), 1.0)
-                cross = toks[d]._replace(ok=ok_act[d])
-            grad_masks = dict(phase2_masks(True), **{"mlps/crossattn": True})
-        else:
-            grad_masks = phase1_masks(feat_frozen)
+            toks = [phase2_tokens(ts, pre, batch.mask[j][0],
+                                  batch.cross_box[j], width, height,
+                                  opt.crossattn_max_tokens, C)
+                    for j, pre in enumerate(pres)]
+            act = torch.tensor(batch.cross_enable).to(dev, non_blocking=True)
+            ok_act = torch.stack([t.ok for t in toks]) & act
+            gate = torch.where(act, ok_act.to(torch.float32), 1.0)
+            cross = toks[d]._replace(ok=ok_act[d])
         gsum = torch.clamp_min(gate.sum(), 1.0)
         g = _rank_grads(mesh, cfg, opt, capacity, width, height, sc, batch,
-                        grad_masks, _seed(mesh, gate[d] / gsum), cross,
-                        white_bg)
+                        grad_masks(use_crossattn, feat_frozen),
+                        _seed(mesh, gate[d] / gsum), cross, white_bg)
 
         with torch.no_grad():
             demand = pmax(overflow_demand(g.binning), mesh.world_group)
@@ -390,49 +381,31 @@ def make_sharded_train_step(mesh: Mesh, cfg: ScaffoldConfig,
             # the write gate, the same on every rank (gathered scalars)
             ok = (demand <= capacity) & torch.isfinite(loss)
             grads, screen = _mesh_sum(g.grads, g.screen, mesh)
-        stats = ts.stats
-        if accumulate:
-            with torch.no_grad():
-                ndc = screen * device_constant((0.5 * width, 0.5 * height),
-                                               dev)
-                grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(
-                    C, k) * gsum
-                valid = (g.dec.active & (g.splats.radius > 0)).reshape(C, k)
+            stat_views = None
+            if accumulate:
+                valid = (g.dec.active & (g.splats.radius > 0)).reshape(S, k)
                 parts = all_gather(torch.stack([
-                    g.dec.neural_opacity.detach(), grad_norm,
+                    g.dec.neural_opacity.detach(),
+                    screen_grad_norm(screen, width, height, k) * gsum,
                     valid.to(torch.float32)]), mesh.data_group)
-                new = stats
+                stat_views = []
                 for v, (nop, gn, gv) in enumerate(parts):
                     on = gate[v] > 0
-                    new = accumulate_stats(
-                        new, nop, gn, (gv > 0) & on,
-                        (pres[v].radius > 0) & sc.alive & on)
-                stats = gate_stats(ok, new, stats)
-
-        # a step gated off in every view changes no main group
-        upd_ok = ok if not all(batch.cross_enable) else ok & any_cross
-        lrs = lr_tree(step1, opt, spatial_lr_scale)
-        params = named_params(sc)
-        step_c1 = ts.step_c
-        with record_function("step/adam"), torch.no_grad():
-            if use_crossattn:
-                apply_adam(params, grads, ts.m, ts.v, lrs, step1,
-                           phase2_masks(upd_ok))
+                    stat_views.append((nop, gn, (gv > 0) & on,
+                                       (pres[v].radius > 0) & sc.alive & on))
+            feat = None
+            if use_crossattn:     # each view's EMA deltas, summed
                 feats = all_gather(g.feat, mesh.data_group)
                 p = sc.params
-                torch.where(ok, feats[0] if B == 1 else p.feat + ordered_sum(
-                    [f - p.feat for f in feats]), p.feat, out=p.feat)
-                upd_c = ok & any_cross
-                step_c1 = ts.step_c + upd_c.to(torch.int32)
-                ca = {n: t for n, t in params.items()
-                      if group_of(n) == "mlps/crossattn"}
-                apply_adam(ca, grads, ts.m, ts.v, lrs,
-                           device_bias(torch.clamp_min(step_c1, 1), step1),
-                           {"mlps/crossattn": upd_c})
-            else:
-                apply_adam(params, grads, ts.m, ts.v, lrs, step1,
-                           phase1_masks(feat_frozen), ok)
-        return ts._replace(step=step1, step_c=step_c1, stats=stats), aux
+                feat = feats[0] if B == 1 else p.feat + ordered_sum(
+                    [f - p.feat for f in feats])
+        # a step gated off in every view changes no main group
+        upd_ok = ok if not all(batch.cross_enable) else ok & any_cross
+        return update_state(whole, ts, grads, ok, upd_ok, ok & any_cross,
+                            stat_views, feat, opt=opt,
+                            use_crossattn=use_crossattn,
+                            feat_frozen=feat_frozen,
+                            spatial_lr_scale=spatial_lr_scale), aux
 
     return step
 

@@ -382,8 +382,7 @@ def train_scene(views, ref_index: int, points: np.ndarray, run: RunConfig,
                 accumulate=rec["accumulate"])
         rec["dispatch_s"] = time.time() - t0
         rec["capacity"] = cap
-        # the sharded step runs over every slot
-        rec["span"] = state.span if mesh is None else cfg.capacity
+        rec["span"] = state.span
         return rec
 
     def launch(rec: Dict, state) -> Dict:

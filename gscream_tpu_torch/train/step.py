@@ -42,7 +42,10 @@ The step runs over the state's anchor span, the first ``ts.span`` slots
 decode, projection, binning, backward, statistics and Adam, has ``span``
 rows, and the slots beyond it are neither read nor written.  They are
 dead with zero moments, so the step over the whole capacity leaves them
-as they are too.
+as they are too.  The mesh's step (``parallel.shard``) shares the span,
+the token draw (:func:`phase2_tokens`) and the update
+(:func:`update_state`); the band render, the view gate and the sums over
+the ranks are its own.
 """
 from __future__ import annotations
 
@@ -341,14 +344,11 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
                height: int, accumulate: bool, white_bg: bool = False,
                spatial_lr_scale: float = 1.0, feat_frozen: bool = False,
                precise_sort: bool = True):
-    """Launch one optimization iteration.  Returns (new_state, StepAux);
-    the parameters and moments are updated in place, so ``ts`` itself
-    holds the new values too — except where the step's device flag
-    ``ok`` is False (an instance demand above ``capacity`` or a loss that
-    is not finite): then no tensor of the state is written (module
+    """Launch one optimization iteration over the first ``ts.span``
+    anchor slots.  Returns (new_state, StepAux); ``ts``'s tensors are
+    updated in place, unless the device flag ``ok`` is False (module
     docstring).  Nothing is read to the host; ``aux_values(aux)`` reads
-    the scalars.  It runs over the first ``ts.span`` anchor slots
-    (module docstring).
+    the scalars.
 
     gt_image (3,H,W) · gt_mask (1,H,W) · midas_depth (1,H,W) ·
     fg_box_mask (H,W) random box for the ref-view fg depth term ·
@@ -365,31 +365,20 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         ts = anchor_rows(ts, S)
     scaffold = ts.scaffold
     dev = scaffold.alive.device
-    step1 = ts.step + 1
-    p = scaffold.params
 
     pre = prefilter(scaffold, camera)
     anchor_visible = (pre.radius > 0) & scaffold.alive
 
     cross = None
     if use_crossattn:
-        with record_function("step/tokens"), torch.no_grad():
-            if cross_box is None:
-                cross_box = torch.zeros(4, dtype=torch.int32, device=dev)
-            # drawn for every slot, so the generator's stream does not
-            # depend on the span
-            pri = tuple(u[:S] for u in token_priorities(ts, C))
-            n_tok = min(opt.crossattn_max_tokens, S)
-            cross = sample_cross_tokens(
-                pri, pre.mean2d[:, 0], pre.mean2d[:, 1],
-                pre.radius > 0, scaffold.alive, gt_mask[0], cross_box,
-                width, height, n_tok)
-        grad_masks = dict(phase2_masks(True), **{"mlps/crossattn": True})
-    else:
-        grad_masks = phase1_masks(feat_frozen)
+        if cross_box is None:
+            cross_box = torch.zeros(4, dtype=torch.int32, device=dev)
+        cross = phase2_tokens(ts, pre, gt_mask[0], cross_box, width, height,
+                              opt.crossattn_max_tokens, C)
     g = loss_and_grads(scaffold, camera, gt_image, gt_mask, midas_depth,
                        fg_box_mask, cfg=cfg, opt=opt, is_ref=is_ref,
-                       capacity=capacity, masks=grad_masks,
+                       capacity=capacity,
+                       masks=grad_masks(use_crossattn, feat_frozen),
                        white_bg=white_bg, cross=cross,
                        precise_sort=precise_sort)
 
@@ -402,61 +391,99 @@ def train_step(ts: TrainState, camera: Camera, gt_image, gt_mask,
         # the write gate: a truncated instance list (the caller re-runs at
         # a larger capacity) or a garbage loss (the caller stops)
         ok = (demand <= capacity) & torch.isfinite(g.loss.detach())
+        views = [(g.dec.neural_opacity.detach(),
+                  screen_grad_norm(g.screen, width, height, k),
+                  (g.dec.active & (g.splats.radius > 0)).reshape(S, k),
+                  anchor_visible)] if accumulate else None
+        # a step with cross_ok False changes no parameter and no moment
+        # (and still advances ``step``), as JAX's ``where`` masks gate it
+        upd = ok & cross_ok
+    return update_state(whole, ts, g.grads, ok, upd, upd, views, g.feat,
+                        opt=opt, use_crossattn=use_crossattn,
+                        feat_frozen=feat_frozen,
+                        spatial_lr_scale=spatial_lr_scale), aux
 
-    # --- densification stats (training_statis, train.py:599) ------------
+
+def grad_masks(use_crossattn: bool, feat_frozen: bool):
+    """The groups a step of each phase differentiates."""
+    if use_crossattn:
+        return dict(phase2_masks(True), **{"mlps/crossattn": True})
+    return phase1_masks(feat_frozen)
+
+
+def phase2_tokens(ts: TrainState, pre: Splats, gt_mask, box, width: int,
+                  height: int, max_tokens: int, capacity: int) -> CrossTokens:
+    """One view's phase-2 tokens over the rows of ``ts`` (the span), from
+    priorities drawn for all ``capacity`` slots, so that the generator's
+    stream does not depend on the span."""
+    S = pre.mean2d.shape[0]
+    with record_function("step/tokens"), torch.no_grad():
+        pri = tuple(u[:S] for u in token_priorities(ts, capacity))
+        return sample_cross_tokens(
+            pri, pre.mean2d[:, 0], pre.mean2d[:, 1], pre.radius > 0,
+            ts.scaffold.alive, gt_mask, box, width, height,
+            min(max_tokens, S))
+
+
+def screen_grad_norm(screen, width: int, height: int, k: int):
+    """(rows, k) screen-gradient norms in NDC units (backward.cu:592)."""
+    ndc = screen * device_constant((0.5 * width, 0.5 * height),
+                                   screen.device)
+    return torch.linalg.vector_norm(ndc, dim=1).reshape(-1, k)
+
+
+@torch.no_grad()
+def update_state(whole: TrainState, ts: TrainState, grads, ok, main_ok,
+                 cross_ok, views=None, feat=None, *, opt: OptimConfig,
+                 use_crossattn: bool, feat_frozen: bool,
+                 spatial_lr_scale: float) -> TrainState:
+    """One step's write into ``whole`` (in place) through ``ts``, its cut
+    to the span (``whole`` itself at a full span): each view's
+    ``accumulate_stats`` inputs of ``views`` (None: no statistics) in
+    order, the masked Adam, and in phase 2 the features ``feat`` and the
+    cross-attention's Adam; ``ok`` gates every write, ``main_ok`` and
+    ``cross_ok`` phase 2's two Adams."""
     stats = whole.stats
-    if accumulate:
-        with torch.no_grad():
-            # screen grads in the reference's NDC units (backward.cu:592)
-            ndc = g.screen * device_constant((0.5 * width, 0.5 * height),
-                                             dev)
-            grad_norm = torch.linalg.vector_norm(ndc, dim=1).reshape(S, k)
-            gauss_valid = (g.dec.active
-                           & (g.splats.radius > 0)).reshape(S, k)
-            rows = gate_stats(ok, accumulate_stats(
-                ts.stats, g.dec.neural_opacity.detach(), grad_norm,
-                gauss_valid, anchor_visible), ts.stats)
-            stats = rows if S == C else stats._replace(**{
-                f: torch.cat([getattr(rows, f), getattr(stats, f)[S:]])
-                for f in PER_ANCHOR_STATS})
+    if views is not None:     # training_statis, train.py:599
+        new = ts.stats
+        for v in views:
+            new = accumulate_stats(new, *v)
+        rows = type(new)(*(torch.where(ok, a, b)
+                           for a, b in zip(new, ts.stats)))
+        S = ts.scaffold.alive.shape[0]
+        stats = rows if ts is whole else stats._replace(**{
+            f: torch.cat([getattr(rows, f), getattr(stats, f)[S:]])
+            for f in PER_ANCHOR_STATS})
 
     # --- masked Adam, in place ------------------------------------------
-    # a step with cross_ok False changes no parameter and no moment (and
-    # still advances ``step``), as JAX's ``where`` masks gate it
-    upd = ok & cross_ok
+    step1 = ts.step + 1
     lrs = lr_tree(step1, opt, spatial_lr_scale)
-    params = named_params(scaffold)
+    params = named_params(ts.scaffold)
     step_c1 = ts.step_c
     with record_function("step/adam"):
         if use_crossattn:
-            apply_adam(params, g.grads, ts.m, ts.v, lrs, step1,
-                       phase2_masks(upd))
+            apply_adam(params, grads, ts.m, ts.v, lrs, step1,
+                       phase2_masks(main_ok))
             # JAX's masked Adam returns a masked leaf's passed-in value,
             # and the value it is passed for params/feat is
             # stop_gradient(feat_used) (step.py:317-318): the EMA-mixed
             # features are written back into the state.  The in-place
             # Adam skips masked groups, so the write is made here.
-            with torch.no_grad():
-                torch.where(ok, g.feat, p.feat, out=p.feat)
+            p = ts.scaffold.params
+            torch.where(ok, feat, p.feat, out=p.feat)
             # the cross-attention's own Adam (optimizer_c,
             # train.py:614-616): its own step count, run only on steps
             # where the attention ran, at the main step's learning rate
-            step_c1 = ts.step_c + upd.to(torch.int32)
+            step_c1 = ts.step_c + cross_ok.to(torch.int32)
             ca = {n: t for n, t in params.items()
                   if group_of(n) == "mlps/crossattn"}
-            apply_adam(ca, g.grads, ts.m, ts.v, lrs,
+            apply_adam(ca, grads, ts.m, ts.v, lrs,
                        device_bias(torch.clamp_min(step_c1, 1), step1),
-                       {"mlps/crossattn": upd})
+                       {"mlps/crossattn": cross_ok})
         else:
-            apply_adam(params, g.grads, ts.m, ts.v, lrs, step1,
+            apply_adam(params, grads, ts.m, ts.v, lrs, step1,
                        phase1_masks(feat_frozen), ok)
-    return whole._replace(step=step1, step_c=step_c1, stats=stats), aux
-
-
-def gate_stats(ok: torch.Tensor, new, old):
-    """``new`` densification statistics where the device flag ``ok`` is
-    True, ``old`` where it is False."""
-    return type(old)(*(torch.where(ok, a, b) for a, b in zip(new, old)))
+    return whole._replace(step=step1, step_c=step_c1, stats=stats)
 
 
 class StepGrads(NamedTuple):

@@ -1,5 +1,7 @@
 """The training step over the anchor span (``train.state.anchor_span``),
-on the CPU, without JAX.
+on the CPU, without JAX, through both entry points: ``train_step`` and
+the mesh's step (``make_sharded_train_step``) at ``Mesh()`` (1, 1) in
+this process, on one view.
 
 The state: a seeded model of 1,500 alive anchors in 4,096 slots (span
 2,048), one slot inside the prefix pruned with its moments kept, random
@@ -40,6 +42,7 @@ KW = dict(feat_dim=8, n_offsets=2, voxel_size=0.01, capacity=C)
 CAP = 1 << 16
 TIER = 1024          # the capacity tier grid's step below 2^14 slots
 CASES = ("phase1", "phase2", "moment")
+ENTRIES = ("train_step", "mesh")
 
 
 def _state(case):
@@ -114,12 +117,19 @@ def _copy(ts):
     return copy.deepcopy(ts._replace(generator=None))._replace(generator=g)
 
 
-def _step(ts, cfg, case, span):
-    """One step of ``case`` from a copy of ``ts`` at ``span``; returns
-    (the state after, its aux values, the tokens drawn)."""
+def _step(ts, cfg, entry, case, span):
+    """One step of ``case`` through ``entry`` from a copy of ``ts`` at
+    ``span``; returns (the state after, its aux values, the tokens
+    drawn)."""
     from gscream_tpu_torch.config import OptimConfig
+    from gscream_tpu_torch.parallel.mesh import Mesh
+    from gscream_tpu_torch.parallel.shard import (make_sharded_train_step,
+                                                  sharded_view_batch)
     from gscream_tpu_torch.train import step as step_mod
     cam, gt, mask, midas, fg_box = _inputs()
+    box = torch.tensor([0, H, 0, W], dtype=torch.int32)
+    opt = OptimConfig(crossattn_max_tokens=256)
+    phase2 = case == "phase2"
     tokens = []
     inner = step_mod.sample_cross_tokens
 
@@ -128,29 +138,38 @@ def _step(ts, cfg, case, span):
         return tokens[-1]
     step_mod.sample_cross_tokens = spy
     try:
-        phase2 = case == "phase2"
-        new, aux = step_mod.train_step(
-            _copy(ts)._replace(span=span), cam, gt, mask, midas, fg_box,
-            torch.tensor([0, H, 0, W], dtype=torch.int32), cfg=cfg,
-            opt=OptimConfig(crossattn_max_tokens=256), is_ref=True,
-            use_crossattn=phase2, capacity=CAP, width=W, height=H,
-            accumulate=not phase2)
+        ts = _copy(ts)._replace(span=span)
+        if entry == "mesh":
+            batch = sharded_view_batch(
+                [dict(camera=cam, image=gt, mask=mask, depth=midas)],
+                fg_boxes=[fg_box], is_ref=[True], cross_boxes=[box],
+                cross_enable=[phase2], device="cpu")
+            step = make_sharded_train_step(Mesh(), cfg, opt, CAP, W, H)
+            new, aux = step(ts, batch, use_crossattn=phase2,
+                            accumulate=not phase2)
+        else:
+            new, aux = step_mod.train_step(
+                ts, cam, gt, mask, midas, fg_box, box, cfg=cfg, opt=opt,
+                is_ref=True, use_crossattn=phase2, capacity=CAP, width=W,
+                height=H, accumulate=not phase2)
     finally:
         step_mod.sample_cross_tokens = inner
     return new, step_mod.aux_values(aux), tokens
 
 
-@pytest.fixture(scope="module", params=CASES)
+@pytest.fixture(scope="module",
+                params=[(e, c) for e in ENTRIES for c in CASES],
+                ids=lambda p: "-".join(p))
 def runs(request):
-    """Each case's state and its step at the span, over every slot and
-    one tier below the span."""
-    case = request.param
+    """Each entry point's and case's state and its step at the span,
+    over every slot and one tier below the span."""
+    entry, case = request.param
     cfg, ts = _state(case)
     before = _copy(ts)
     return dict(case=case, span=ts.span, before=before,
-                at_span=_step(ts, cfg, case, ts.span),
-                whole=_step(ts, cfg, case, C),
-                low=_step(ts, cfg, case, ts.span - TIER))
+                at_span=_step(ts, cfg, entry, case, ts.span),
+                whole=_step(ts, cfg, entry, case, C),
+                low=_step(ts, cfg, entry, case, ts.span - TIER))
 
 
 def _differences(a, b):

@@ -270,7 +270,8 @@ def test_phase2_batch_gates_and_writes_feat_by_ema(world, jax_parity):
 def test_loop_on_a_mesh_tracks_one_device(world, tmp_path, monkeypatch):
     """``train_scene(mesh=(1, 2))``, 10 iterations across the switch to
     phase 2, against the single-device loop; the loop checks the replicas
-    itself, and the two ranks return the same digest."""
+    itself, and the two ranks return the same digest; each step's anchor
+    span is the single-device loop's."""
     from gscream_tpu_torch.config import ModelConfig, OptimConfig, RunConfig
     from gscream_tpu_torch.parallel.workers import (host_state,
                                                     train_scene_worker)
@@ -292,6 +293,8 @@ def test_loop_on_a_mesh_tracks_one_device(world, tmp_path, monkeypatch):
                  str(tmp_path / "mesh"), kw)
     assert res[0]["digest"] == res[1]["digest"]
     assert any(s["use_cross"] for s in res[0]["steps"])
+    spans = [s["span"] for s in res[0]["steps"]]
+    assert spans == [s["span"] for s in log.steps]
     np.testing.assert_allclose(res[0]["losses"], log.losses, rtol=5e-3)
     ref = host_state(ts)
     for k, t in ref["params"].items():
